@@ -2,14 +2,24 @@
 
     python3 chip_smoke.py
 
-Builds every kernel of the port's main path from csrc/ with nvcc, holds
-each kernel against its plain PyTorch version on the card, drives a
-1080p CompressSession (--preset ultrafast --tune zerolatency --me esa
---qp 26: 1 IDR + 5 P frames of textured content moving by a known
-shift), checks the stream, the motion vectors and the reconstruction,
-encodes a small clip on the card and on the CPU and requires identical
-bytes, and prints one line per phase with its elapsed seconds.  The last
-two lines are the kernels' JSON record and {"ok": true, "device": ...}.
+Builds every kernel of the port's main paths from csrc/ with nvcc (one
+nvcc per source, in parallel) and holds each kernel against its plain
+PyTorch version on the card: the full-search SAD (minima and quad mode),
+partition_refine_mc and deblock_apply.  Then drives two 1080p
+CompressSessions on a clip of textured content moving by a known shift:
+
+  * slice 1, --preset ultrafast --tune zerolatency --me esa --qp 26
+    (1 IDR + 3 P), which runs the SAD kernel once per P frame;
+  * slice 2, the same plus --deblock 0:0 --partitions p8x8 --subme 7
+    (1 IDR + 5 P), which runs the SAD and partition_refine_mc kernels once
+    per P frame and deblock_apply on every frame;
+
+and checks each stream, its motion vectors and its reconstruction.  Then
+it encodes a small clip with both command lines on the card and on the
+CPU and requires identical bytes.  Each kernel's launch count is set to 0
+just before a session and read just after it.  Prints one line per phase
+with its elapsed seconds; the last three lines are the card's name and
+power limit, the kernels' JSON record and {"ok": true, "device": ...}.
 Any failed check raises, and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
 """
@@ -28,14 +38,19 @@ import numpy as np
 import torch
 
 # published H100 SXM peaks (NVIDIA H100 datasheet): HBM bytes/s and
-# dense int8 operations/s, used for the bound of an 8-bit integer kernel
+# dense int8 operations/s, used for the bound of a kernel on 8-bit pixels
 PEAK_BYTES = 3.35e12
 PEAK_INT8_OPS = 1979e12
 
 CMDLINE = "--preset ultrafast --tune zerolatency --me esa --qp 26"
+CMDLINE_PARTS = CMDLINE + " --deblock 0:0 --partitions p8x8 --subme 7"
 DEV = "cuda"
-SESSION_SIZE = (1920, 1080)            # the main path's geometry
+KERNELS = ("sad", "memc", "deblock")
+SESSION_SIZE = (1920, 1080)            # the main paths' geometry
+SMALL_SIZE = (128, 96)                 # the card-vs-CPU clip
 SAD_SHAPES = ((1088, 1920, 16), (48, 320, 4), (64, 80, 8), (32, 272, 16))
+MEMC_SHAPES = SAD_SHAPES
+DEBLOCK_MBS = ((68, 120), (3, 4), (5, 7), (2, 20))
 SHIFT = (3, -2)          # (dx, dy) content motion per frame, full pels
 T0 = time.time()
 
@@ -75,6 +90,16 @@ def cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def max_diff(got, want) -> int:
+    """Largest absolute difference over matching tensors (dicts, tuples or
+    one tensor)."""
+    if isinstance(got, dict):
+        return max(max_diff(got[k], want[k]) for k in want)
+    if isinstance(got, (tuple, list)):
+        return max(max_diff(g, w) for g, w in zip(got, want))
+    return int((got.long() - want.long()).abs().max())
+
+
 def textured(h: int, w: int, seed: int) -> np.ndarray:
     """Band-limited random texture (3x3 box-blurred noise), uint8."""
     rng = np.random.default_rng(seed)
@@ -103,17 +128,70 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
     return 99.0 if mse == 0 else float(10 * np.log10(255.0 ** 2 / mse))
 
 
-def sad_bound_ms(H: int, W: int, R: int) -> tuple[float, str]:
-    """Least time for one sad_partition_minima call: bytes moved (inputs
-    read once, outputs written once) over HBM bandwidth vs operations
-    (one absolute difference + one add per pixel and offset) over the
-    int8 peak; the larger one, and which it is."""
-    K = 2 * R + 1
-    n = (H // 16) * (W // 16)
-    nbytes = H * W + (H + 2 * R) * (W + 2 * R) + 18 * n * 4
-    ops = 2.0 * K * K * H * W
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """Least time in ms: bytes moved (inputs read once, outputs written
+    once) over HBM bandwidth vs operations over the int8 peak; the larger
+    one, and which it is."""
     tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT8_OPS * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def sad_bound_ms(H: int, W: int, R: int, quad: bool = False):
+    """One full search: the planes in, the minima (or every offset's four
+    quadrant SADs) out; one absolute difference + one add per pixel and
+    offset."""
+    K = 2 * R + 1
+    n = (H // 16) * (W // 16)
+    out = K * K * 4 * n * 4 if quad else 18 * n * 4
+    return bound(H * W + (H + 2 * R) * (W + 2 * R) + out, 2.0 * K * K * H * W)
+
+
+def memc_bound_ms(H: int, W: int, R: int, ncand: int):
+    """src, ref_pad, mv8i and part in; mv8 and the int32 prediction out;
+    per pixel the three 6-tap half-pel filters (~36 operations) and per
+    candidate a rounded mean and an absolute difference (6 operations)."""
+    P = R + 8
+    nblk = (H // 8) * (W // 8)
+    nbytes = (H * W + (H + 2 * P) * (W + 2 * P) + nblk * 8
+              + (H // 16) * (W // 16) * 4 + nblk * 8 + H * W * 4)
+    return bound(nbytes, H * W * (36.0 + 6.0 * ncand))
+
+
+def deblock_bound_ms(H: int, W: int):
+    """The int32 planes read and written once, the four maps read once;
+    about 40 operations per edge line of the 4 + 4 luma and 2 x (2 + 2)
+    chroma edges of every MB."""
+    mbh, mbw = H // 16, W // 16
+    planes = (H * W + H * W // 2) * 4
+    maps = (H * 4 * mbw + 4 * mbh * W + H // 2 * 2 * mbw
+            + 2 * mbh * W // 2) * 4
+    lines = mbh * mbw * (8 * 16 + 8 * 8)
+    return bound(2 * planes + maps, 40.0 * lines)
+
+
+def deblock_case(mbh: int, mbw: int, seed: int, dev):
+    """Blocky planes and maps from build_maps over random metadata: intra
+    and inter MBs, coded blocks, vectors, refs, QPs 16..51, offsets of
+    +-6 (offA/offB +-12)."""
+    from x264vfw_tpu_torch.ops.deblock import build_maps
+    rng = np.random.default_rng(seed)
+    H, W = 16 * mbh, 16 * mbw
+    base = rng.integers(60, 200, (H // 4, W // 4))
+    y = (np.kron(base, np.ones((4, 4), np.int64))
+         + rng.integers(-3, 4, (H, W))).clip(0, 255)
+    u = (y[::2, ::2] + rng.integers(-2, 3, (H // 2, W // 2))).clip(0, 255)
+    planes = [torch.as_tensor(p.astype(np.int32), device=dev)
+              for p in (y, u, 255 - u)]
+    meta = (rng.random((mbh, mbw)) < 0.3,
+            ((rng.random((4 * mbh, 4 * mbw)) < 0.3)
+             * rng.integers(1, 5, (4 * mbh, 4 * mbw))).astype(np.int32),
+            rng.integers(-6, 7, (4 * mbh, 4 * mbw, 2)).astype(np.int32),
+            (rng.random((4 * mbh, 4 * mbw)) < 0.1).astype(np.int32),
+            rng.integers(16, 52, (mbh, mbw)).astype(np.int32))
+    offA, offB = (12, -12) if seed % 2 else (-12, 12)
+    maps = build_maps(*(torch.as_tensor(a, device=dev) for a in meta),
+                      offA, offB, 0)
+    return planes, [m.contiguous() for m in maps]
 
 
 def main() -> int:
@@ -122,11 +200,18 @@ def main() -> int:
         return 2
     from x264vfw_tpu_torch.api import CompressSession
     from x264vfw_tpu_torch.bitstream.nal import split_annexb
-    from x264vfw_tpu_torch.encode.device import _edge_pad
+    from x264vfw_tpu_torch.encode import device as dv
+    from x264vfw_tpu_torch.encode import device_finalize as dfin
+    from x264vfw_tpu_torch.encode.inter_partition import \
+        partition_decide_from_minima
+    from x264vfw_tpu_torch.encode.torch_encoder import _pad
     from x264vfw_tpu_torch.ops.kernels import build
+    from x264vfw_tpu_torch.ops.kernels import deblock as dbk
+    from x264vfw_tpu_torch.ops.kernels import memc as memck
     from x264vfw_tpu_torch.ops.kernels import sad as sadk
 
     dev = torch.device(DEV)
+    mods = {"sad": sadk, "memc": memck, "deblock": dbk}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         # ---- 1. device -------------------------------------------------
@@ -135,15 +220,17 @@ def main() -> int:
         phase("device", t, torch=torch.__version__, cuda=torch.version.cuda,
               card_name=repr(torch.cuda.get_device_name(0)), smi=repr(card))
 
-        # ---- 2. build ----------------------------------------------------
+        # ---- 2. build: one nvcc per source, all at once ----------------
         t = time.time()
-        build.build(["sad"])
-        build.load("sad")
-        phase("build", t, lib=os.path.basename(build.library_path("sad")))
+        build_s = build.build(KERNELS)
+        for name in KERNELS:
+            build.load(name)
+        phase("build", t, seconds={k: round(v, 2) for k, v in build_s.items()},
+              libs=[os.path.basename(build.library_path(k)) for k in KERNELS])
 
-        # ---- 3. kernel vs plain version on the card ------------------------
+        # ---- 3. kernel vs plain version on the card, exact ---------------
         t = time.time()
-        max_err = 0
+        err = {k: 0 for k in KERNELS}
         rng = np.random.default_rng(7)
         for (H, W, R) in SAD_SHAPES:
             src = torch.as_tensor(rng.integers(0, 256, (H, W), np.uint8),
@@ -152,28 +239,52 @@ def main() -> int:
                 rng.integers(0, 256, (H + 2 * R, W + 2 * R), np.uint8),
                 device=dev)
             for scales in ((4, 2, 2, 1), (1, 0, 0, 0)):
-                got = sadk.sad_partition_minima(src, refp, R, scales)
-                want = sadk.sad_partition_minima_plain(src, refp, R, scales)
-                torch.cuda.synchronize()
-                for k in sadk.NAMES:
-                    err = int((got[k] - want[k]).abs().max())
-                    max_err = max(max_err, err)
-                    check(err == 0, f"sad {k} at {(H, W, R)} {scales}: "
-                          f"max |diff| {err}")
-        phase("kernel_vs_plain", t, max_abs_err=max_err, tolerance=0)
+                d = max_diff(sadk.sad_partition_minima(src, refp, R, scales),
+                             sadk.sad_partition_minima_plain(src, refp, R,
+                                                             scales))
+                err["sad"] = max(err["sad"], d)
+                check(d == 0, f"sad at {(H, W, R)} {scales}: max |diff| {d}")
+            d = max_diff(sadk.sad_search_quad(src, refp, R),
+                         sadk.sad_search_quad_plain(src, refp, R))
+            err["sad"] = max(err["sad"], d)
+            check(d == 0, f"sad quad mode at {(H, W, R)}: max |diff| {d}")
+        for (H, W, R) in MEMC_SHAPES:
+            P = R + 8
+            args = [torch.as_tensor(a, device=dev) for a in (
+                rng.integers(0, 256, (H, W), np.uint8),
+                rng.integers(0, 256, (H + 2 * P, W + 2 * P), np.uint8),
+                rng.integers(-R, R + 1, (H // 8, W // 8, 2), np.int32),
+                rng.integers(0, 4, (H // 16, W // 16), np.int32))]
+            for sub_lv in (0, 1, 2):
+                d = max_diff(memck.partition_refine_mc(*args, R, sub_lv),
+                             memck.partition_refine_mc_plain(*args, R,
+                                                             sub_lv))
+                err["memc"] = max(err["memc"], d)
+                check(d == 0, f"memc at {(H, W, R)} sub_lv {sub_lv}: "
+                      f"max |diff| {d}")
+        bs_seen = set()
+        for i, (mbh, mbw) in enumerate(DEBLOCK_MBS):
+            planes, maps = deblock_case(mbh, mbw, seed=i, dev=dev)
+            bs_seen |= set((maps[0] & 7).unique().tolist())
+            d = max_diff(dbk.deblock_apply(*planes, *maps),
+                         dbk.deblock_apply_plain(*planes, *maps))
+            err["deblock"] = max(err["deblock"], d)
+            check(d == 0, f"deblock at {(mbh, mbw)}: max |diff| {d}")
+        check(bs_seen == {0, 1, 2, 3, 4}, f"bS values covered: {bs_seen}")
+        torch.cuda.synchronize()
+        phase("kernel_vs_plain", t, max_abs_err=err, tolerance=0)
 
-        # ---- 4. the session at 1080p ---------------------------------------
+        # ---- 4. slice 1 at 1080p: P16x16, integer-pel ---------------------
         t = time.time()
-        (w, h), nfr = SESSION_SIZE, 6
-        clip = moving_clip(w, h, nfr, seed=1)
+        (w, h), nfr = SESSION_SIZE, 4
+        clip = moving_clip(w, h, 6, seed=1)
         sess = CompressSession(extra_cmdline=CMDLINE, device=DEV)
         sess.begin(w, h, output=os.path.join(tmp, "smoke.264"))
         enc = sess.encoder
-        R = enc.cfg.search_range
-        sadk.LAUNCHES = 0
+        for m in mods.values():
+            m.LAUNCHES = 0
         stream, frame_ms, mv_ok, psnrs = b"", [], [], []
-        for f, frame in enumerate(clip):
-            prev_ref = enc.ref
+        for f, frame in enumerate(clip[:nfr]):
             t1 = time.time()
             stream += sess.compress(frame)
             torch.cuda.synchronize()
@@ -184,67 +295,170 @@ def main() -> int:
                 inner = mv[1:-1, 1:-1].reshape(-1, 2)
                 want = np.array([-4 * SHIFT[0], -4 * SHIFT[1]])
                 mv_ok.append(float((inner == want).all(-1).mean()))
-        launches = sadk.LAUNCHES
+        launches1 = {k: m.LAUNCHES for k, m in mods.items()}
         sess.end()
         nals = [u.nal_unit_type for u in split_annexb(stream)]
         check(nals.count(7) == 1 and nals.count(8) == 1,
               f"one SPS and one PPS, got NAL types {nals}")
         check(nals.count(5) == 1 and nals.count(1) == nfr - 1,
               f"1 IDR + {nfr - 1} P slices, got NAL types {nals}")
-        check(launches == nfr - 1,
-              f"SAD kernel launched {launches} times for {nfr - 1} P frames")
+        check(launches1 == {"sad": nfr - 1, "memc": 0, "deblock": 0},
+              f"slice-1 launches {launches1} for {nfr - 1} P frames")
         check(min(mv_ok) >= 0.9, f"interior MVs equal to the shift: {mv_ok}")
         check(min(psnrs) > 30.0, f"luma PSNR per frame {psnrs}")
         with open(os.path.join(tmp, "smoke.264"), "rb") as fh:
             check(len(fh.read()) > 0, "raw muxer wrote the stream")
-        # the last P frame's search inputs, as the encoder forms them
-        src8 = torch.as_tensor(np.pad(clip[-1][0], ((0, -h % 16), (0, 0)),
-                                      mode="edge"), device=dev)
-        refp = _edge_pad(prev_ref[0], R).to(torch.uint8).contiguous()
-        H, W = src8.shape
-        kernel_ms = cuda_ms(lambda: sadk.sad16_argmin(src8, refp, R), 20)
-        plain_ms = cuda_ms(
-            lambda: sadk.sad_partition_minima_plain(src8, refp, R,
-                                                    (1, 0, 0, 0)), 3)
-        bound_ms, bound_by = sad_bound_ms(H, W, R)
         phase("session_1080p", t, bytes=len(stream),
               i_ms=round(frame_ms[0], 1),
               p_ms=[round(x, 1) for x in frame_ms[1:]],
               psnr_y=[round(x, 2) for x in psnrs],
-              mv_match=[round(x, 4) for x in mv_ok], launches=launches,
-              sad_ms=round(kernel_ms, 4), sad_plain_ms=round(plain_ms, 2))
+              mv_match=[round(x, 4) for x in mv_ok], launches=launches1)
 
-        # ---- 5. card vs CPU on a small clip ----------------------------------
+        # ---- 5. slice 2 at 1080p: deblock + P8x8 + quarter-pel -------------
         t = time.time()
-        small = moving_clip(128, 96, 4, seed=2)
-        aus = {}
-        for d in (DEV, "cpu"):
-            s = CompressSession(extra_cmdline=CMDLINE, device=d)
-            s.begin(128, 96)
-            aus[d] = b"".join(s.compress(fr) for fr in small)
-            s.end()
-        check(aus[DEV] == aus["cpu"],
-              "card and CPU streams differ at 128x96")
-        phase("card_vs_cpu", t, bytes=len(aus["cpu"]), identical=True)
+        nfr = 6
+        sess = CompressSession(extra_cmdline=CMDLINE_PARTS, device=DEV)
+        sess.begin(w, h)
+        enc = sess.encoder
+        R = enc.cfg.search_range
+        check((enc.cfg.deblock, enc.cfg.partitions, enc.cfg.subpel)
+              == (True, True, 2), "slice-2 options reach the encoder")
+        # the I frame's recon before and after the loop filter
+        filtered = []
+        plain_deblock = dfin._maybe_deblock
 
-        # ---- 6. the record ---------------------------------------------------
-        kernels = [{
-            "name": "sad_partition_minima",
-            "route": "cuda",
-            "source": "x264vfw_tpu_torch/csrc/sad.cu",
-            "replaces": "x264vfw_tpu/ops/pallas/sad.py:239",
-            "launches": launches,
-            "max_abs_err": max_err,
-            "ms": kernel_ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": None,
-            "matched": max_err == 0,
-            "kernel_ms": kernel_ms,
-            "shape": [H, W, R],
-            "card": card,
-        }]
+        def spy(out, *a, **k):
+            res = plain_deblock(out, *a, **k)
+            filtered.append(not torch.equal(out["recon_y"], res[0]))
+            return res
+
+        dfin._maybe_deblock = spy
+        try:
+            for m in mods.values():
+                m.LAUNCHES = 0
+            stream, frame_ms, mv_ok, psnrs = b"", [], [], []
+            for f, frame in enumerate(clip[:nfr]):
+                prev_ref = enc.ref
+                t1 = time.time()
+                stream += sess.compress(frame)
+                torch.cuda.synchronize()
+                frame_ms.append((time.time() - t1) * 1e3)
+                psnrs.append(psnr(enc.last_recon[0], frame[0]))
+                if f:
+                    mv8 = enc.last_mv8.cpu().numpy()
+                    inner = mv8[2:-2, 2:-2].reshape(-1, 2)
+                    want = np.array([-4 * SHIFT[0], -4 * SHIFT[1]])
+                    mv_ok.append(float((inner == want).all(-1).mean()))
+            launches = {k: m.LAUNCHES for k, m in mods.items()}
+        finally:
+            dfin._maybe_deblock = plain_deblock
+        sess.end()
+        ndiag = dbk.diagonals(enc.mbh, enc.mbw)
+        nals = [u.nal_unit_type for u in split_annexb(stream)]
+        check(nals.count(7) == 1 and nals.count(8) == 1 and
+              nals.count(5) == 1 and nals.count(1) == nfr - 1,
+              f"SPS, PPS, 1 IDR + {nfr - 1} P slices, got NAL types {nals}")
+        check(launches == {"sad": nfr - 1, "memc": nfr - 1,
+                           "deblock": nfr * ndiag},
+              f"slice-2 launches {launches}: want {nfr - 1} SAD and memc, "
+              f"{nfr} x {ndiag} deblock diagonals")
+        check(min(mv_ok) >= 0.9, f"interior mv8 equal to the shift: {mv_ok}")
+        check(min(psnrs) > 30.0, f"luma PSNR per frame {psnrs}")
+        check(filtered[0], "the loop filter changed the I frame's recon")
+
+        # the kernels at the session's own shapes: the last P frame's
+        # inputs, formed as the encoder forms them
+        H, W = 16 * enc.mbh, 16 * enc.mbw
+        sy, su, sv = (torch.as_tensor(_pad(p, H // k, W // k), device=dev)
+                      .to(torch.int32)
+                      for p, k in zip(clip[nfr - 1], (1, 2, 2)))
+        src8 = sy.to(torch.uint8).contiguous()
+        refp_r = dv._edge_pad(prev_ref[0], R).to(torch.uint8).contiguous()
+        refp_m = dv._edge_pad(prev_ref[0], R + 8).to(torch.uint8).contiguous()
+        mins = sadk.sad_partition_minima(src8, refp_r, R)
+        part, mv8i = partition_decide_from_minima(mins, R, enc.qp)
+        out = dv.encode_p_frame_core(sy, su, sv, *prev_ref, enc.qp, enc.qpc,
+                                     R, 2, partitions=True)
+        check(torch.equal(memck.partition_refine_mc(src8, refp_m, mv8i, part,
+                                                    R, 2)[0], out["mv8"]),
+              "memc on the session's inputs gives the session's mv8")
+        maps = dv.loop_filter_maps(out, enc.qp, enc.mbh, enc.mbw, False,
+                                   0, 0, enc.pps.chroma_qp_index_offset)
+        recon = [out[k].contiguous()
+                 for k in ("recon_y", "recon_u", "recon_v")]
+        calls = {
+            "sad": (lambda: sadk.sad_partition_minima(src8, refp_r, R),
+                    lambda: sadk.sad_partition_minima_plain(src8, refp_r, R),
+                    sad_bound_ms(H, W, R)),
+            "memc": (lambda: memck.partition_refine_mc(src8, refp_m, mv8i,
+                                                       part, R, 2),
+                     lambda: memck.partition_refine_mc_plain(
+                         src8, refp_m, mv8i, part, R, 2),
+                     memc_bound_ms(H, W, R, 25)),
+            "deblock": (lambda: dbk.deblock_apply(*recon, *maps),
+                        lambda: dbk.deblock_apply_plain(*recon, *maps),
+                        deblock_bound_ms(H, W)),
+        }
+        timing = {k: (cuda_ms(kern, 20), cuda_ms(plain, 3), *bd)
+                  for k, (kern, plain, bd) in calls.items()}
+        quad = (cuda_ms(lambda: sadk.sad_search_quad(src8, refp_r, R), 20),
+                cuda_ms(lambda: sadk.sad_search_quad_plain(src8, refp_r, R),
+                        3), *sad_bound_ms(H, W, R, quad=True))
+        phase("session_1080p_parts", t, bytes=len(stream),
+              i_ms=round(frame_ms[0], 1),
+              p_ms=[round(x, 1) for x in frame_ms[1:]],
+              psnr_y=[round(x, 2) for x in psnrs],
+              mv8_match=[round(x, 4) for x in mv_ok], launches=launches,
+              kernel_ms={k: round(v[0], 4) for k, v in timing.items()},
+              plain_ms={k: round(v[1], 2) for k, v in timing.items()},
+              quad_ms=round(quad[0], 4))
+
+        # ---- 6. card vs CPU on a small clip, both command lines -----------
+        t = time.time()
+        small = moving_clip(*SMALL_SIZE, 4, seed=2)
+        sizes = {}
+        for cmd in (CMDLINE, CMDLINE_PARTS):
+            aus = {}
+            for d in (DEV, "cpu"):
+                s = CompressSession(extra_cmdline=cmd, device=d)
+                s.begin(*SMALL_SIZE)
+                aus[d] = b"".join(s.compress(fr) for fr in small)
+                s.end()
+            check(aus[DEV] == aus["cpu"],
+                  f"card and CPU streams differ at {SMALL_SIZE} for {cmd!r}")
+            sizes[cmd] = len(aus["cpu"])
+        phase("card_vs_cpu", t, bytes=list(sizes.values()), identical=True)
+
+        # ---- 7. the record -------------------------------------------------
+        meta = {
+            "sad": ("csrc/sad.cu", "x264vfw_tpu/ops/pallas/sad.py:239"),
+            "memc": ("csrc/memc.cu", "x264vfw_tpu/ops/pallas/memc.py:253"),
+            "deblock": ("csrc/deblock.cu",
+                        "x264vfw_tpu/ops/pallas/deblock.py:206"),
+        }
+        names = {"sad": "sad_partition_minima", "memc": "partition_refine_mc",
+                 "deblock": "deblock_apply"}
+        kernels = []
+        for k in KERNELS:
+            ms, plain_ms, bound_ms, bound_by = timing[k]
+            rec = {
+                "name": names[k], "route": "cuda",
+                "source": "x264vfw_tpu_torch/" + meta[k][0],
+                "replaces": meta[k][1], "launches": launches[k],
+                "max_abs_err": err[k], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None, "matched": err[k] == 0,
+                "build_s": build_s[k], "shape": [H, W, R], "card": card}
+            if k == "sad":
+                rec.update({"slice1_launches": launches1["sad"],
+                            "quad_replaces":
+                                "x264vfw_tpu/ops/pallas/sad.py:426",
+                            "quad_ms": quad[0], "quad_plain_ms": quad[1],
+                            "quad_bound_ms": quad[2],
+                            "quad_bound_by": quad[3]})
+            if k == "deblock":
+                rec["launches_per_frame"] = ndiag
+            kernels.append(rec)
         print(card, flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """chip_smoke.py's own logic, rehearsed on the CPU.
 
 The script runs on a CUDA card; here its phases run at a small size with
-the CUDA calls stubbed and the plain SAD version counted as the kernel,
-so a later change that breaks a phase or a check shows without a card.
+the CUDA calls stubbed and the plain versions of the SAD, memc and
+deblock kernels counted as the kernels, so a later change that breaks a
+phase or a check shows without a card.
 Also: without a card the script exits non-zero and prints no result.
 """
 
@@ -46,32 +47,58 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
         import chip_smoke as cs
     finally:
         sys.path.remove(ROOT)
+    from x264vfw_tpu_torch.encode import inter_partition as tip
     from x264vfw_tpu_torch.ops.kernels import build
+    from x264vfw_tpu_torch.ops.kernels import deblock as dbk
+    from x264vfw_tpu_torch.ops.kernels import memc as memck
     from x264vfw_tpu_torch.ops.kernels import sad as sadk
 
     monkeypatch.setattr(cs, "DEV", "cpu")
     monkeypatch.setattr(cs, "SESSION_SIZE", (128, 96))
+    monkeypatch.setattr(cs, "SMALL_SIZE", (64, 48))
     monkeypatch.setattr(cs, "SAD_SHAPES", ((48, 64, 4), (32, 48, 6)))
+    monkeypatch.setattr(cs, "MEMC_SHAPES", ((48, 64, 4), (32, 48, 6)))
+    monkeypatch.setattr(cs, "DEBLOCK_MBS", ((3, 4), (2, 5)))
     monkeypatch.setattr(cs, "card_line", lambda: "cpu, 0 W")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setattr(torch.cuda, "Event", _Event)
-    monkeypatch.setattr(build, "build", lambda names: None)
+    monkeypatch.setattr(build, "build",
+                        lambda names: {n: 0.0 for n in names})
     monkeypatch.setattr(build, "load", lambda name: None)
-    plain = sadk.sad_partition_minima
 
-    def counted(*a, **k):
-        sadk.LAUNCHES += 1
-        return plain(*a, **k)
+    def counted(mod, fn, step=lambda *a: 1):
+        def run(*a, **k):
+            mod.LAUNCHES += step(*a)
+            return fn(*a, **k)
+        return run
 
-    monkeypatch.setattr(sadk, "sad_partition_minima", counted)
+    # the plain versions stand in for the kernels, counted as launches
+    sad = counted(sadk, sadk.sad_partition_minima)
+    memc = counted(memck, memck.partition_refine_mc)
+    monkeypatch.setattr(sadk, "sad_partition_minima", sad)
+    monkeypatch.setattr(sadk, "sad_search_quad",
+                        counted(sadk, sadk.sad_search_quad))
+    monkeypatch.setattr(tip, "sad_partition_minima", sad)
+    monkeypatch.setattr(memck, "partition_refine_mc", memc)
+    monkeypatch.setattr(tip, "partition_refine_mc", memc)
+    monkeypatch.setattr(dbk, "deblock_apply", counted(
+        dbk, dbk.deblock_apply,
+        lambda y, *a: dbk.diagonals(y.shape[0] // 16, y.shape[1] // 16)))
     assert cs.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "cpu", "count": 1}}
     kern = json.loads(lines[-2])["kernels"]
-    assert [k["name"] for k in kern] == ["sad_partition_minima"]
-    assert kern[0]["launches"] == 5 and kern[0]["max_abs_err"] == 0
+    assert [k["name"] for k in kern] == ["sad_partition_minima",
+                                         "partition_refine_mc",
+                                         "deblock_apply"]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert all(keys <= set(k) for k in kern)
+    assert [k["launches"] for k in kern] == [5, 5, 6 * (2 * 5 + 8)]
+    assert kern[0]["slice1_launches"] == 3
+    assert all(k["max_abs_err"] == 0 for k in kern)
     assert lines[-3] == "cpu, 0 W"

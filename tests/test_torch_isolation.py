@@ -4,8 +4,9 @@
   anything of the JAX package x264vfw_tpu (AST scan of every import).
 * The entry points default to the CUDA device and raise when there is
   none, instead of carrying on on the CPU.
-* Options outside the ported slice raise NotImplementedError naming the
-  ROADMAP instead of encoding something else.
+* Options outside the ported slices raise NotImplementedError naming the
+  ROADMAP instead of encoding something else (--subme > 0 is ported only
+  with P partitions).
 """
 
 import ast
@@ -69,7 +70,8 @@ def test_encoder_and_state_without_cuda_raise(no_cuda):
 
 @pytest.mark.parametrize("extra", ["", "--bframes 2", "--me hex",
                                    "--subme 2", "--ref 2", "--cabac",
-                                   "--deblock 0:0", "--partitions p8x8,i4x4",
+                                   "--partitions i8x8",
+                                   "--partitions p8x8,i4x4",
                                    "--aq-mode 1", "--weightp 1"])
 def test_out_of_slice_options_raise(extra):
     from x264vfw_tpu_torch.api import CompressSession

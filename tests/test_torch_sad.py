@@ -103,3 +103,7 @@ def test_kernel_matches_plain_on_card(H, W, R):
         torch.cuda.synchronize()
         for k in tsad.NAMES:
             assert torch.equal(got[k], want[k]), k
+    got = tsad.sad_search_quad(s, r, R)
+    want = tsad.sad_search_quad_plain(s, r, R)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

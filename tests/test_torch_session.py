@@ -22,7 +22,7 @@ from x264vfw_tpu_torch.convert import config_from_jax_fields, state_from_numpy
 from x264vfw_tpu_torch.encode.torch_encoder import TorchEncoder
 
 CMDLINE = "--preset ultrafast --tune zerolatency --me esa --qp 26"
-GEOMS = [(64, 48), (128, 96)]
+GEOMS = [(64, 48), (128, 96), (80, 40)]     # 40 rows: a partial MB row
 
 
 def moving_clip(w, h, frames, seed, shift=(2, -1)):

@@ -1,20 +1,22 @@
 """Where a frame's time goes in the PyTorch/CUDA port, on one CUDA card.
 
     python3 tools/torch_profile_frames.py [--width 1920 --height 1080]
-                                          [--out profile.jsonl]
+                                          [--parts] [--out profile.jsonl]
 
 Encodes a textured clip moving by a known shift with the port's
 CompressSession (--preset ultrafast --tune zerolatency --me esa --qp 26
---keyint 2, so I and P frames alternate), warms up on the first two
-frames, then profiles two I and two P frames one by one with
-torch.profiler.  Prints one JSON line per profiled frame: host wall ms
+--keyint 2, so I and P frames alternate; with --parts also --deblock 0:0
+--partitions p8x8 --subme 7), warms up on the first two frames, then
+profiles two I and two P frames one by one with torch.profiler.  Prints one JSON line per profiled frame: host wall ms
 (under the profiler, which slows the host), the summed duration of the
 CUDA kernels, the device's busy share of the wall time, the number of
 kernel launches, and the top kernels by device time.  Then one line per
 frame type with the host-clock ms of each stage of a frame (upload, core,
 CAVLC slots, pack, pull, NAL wrap), synchronised after each stage;
 `p_core` includes the motion search, which `motion_search_mc` times
-alone.  --out also writes the lines to a file.
+alone (with --parts: the partition search, refinement and MC), and
+`deblock` times the loop filter of the frame's reconstruction.  --out
+also writes the lines to a file.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 CMDLINE = ("--preset ultrafast --tune zerolatency --me esa --qp 26 "
            "--keyint 2")
+PARTS = " --deblock 0:0 --partitions p8x8 --subme 7"
 
 
 def clip(w: int, h: int, frames: int, shift=(3, -2), seed: int = 1):
@@ -59,6 +62,7 @@ def stage_lines(enc, prev, cur, card) -> list[str]:
     from x264vfw_tpu_torch.bitstream.nal import NAL_SLICE, wrap_nal
     from x264vfw_tpu_torch.encode import device as dv
     from x264vfw_tpu_torch.encode import device_finalize as df
+    from x264vfw_tpu_torch.encode import inter_partition as ip
     from x264vfw_tpu_torch.encode.torch_encoder import _pad
     H, W = enc.mbh * 16, enc.mbw * 16
     enc.encode_frame(*prev, force_idr=False)          # reference = recon
@@ -80,12 +84,18 @@ def stage_lines(enc, prev, cur, card) -> list[str]:
         planes = df._unpack_src(src, H, W)
         hv, hl = enc._header_slots(SLICE_P if ftype == "P" else SLICE_I,
                                    NAL_SLICE)
+        cfg = enc.cfg
         if ftype == "P":
-            cfg = enc.cfg
-            stage("motion_search_mc", lambda: dv._motion_search_and_mc(
-                *planes, *enc.ref, cfg.search_range))
+            if cfg.partitions:
+                stage("motion_search_mc", lambda: ip.partition_search_and_mc(
+                    *planes, *enc.ref, cfg.search_range, enc.qp,
+                    cfg.subpel))
+            else:
+                stage("motion_search_mc", lambda: dv._motion_search_and_mc(
+                    *planes, *enc.ref, cfg.search_range))
             o = stage("p_core", lambda: dv.encode_p_frame_core(
-                *planes, *enc.ref, enc.qp, enc.qpc, cfg.search_range))
+                *planes, *enc.ref, enc.qp, enc.qpc, cfg.search_range,
+                cfg.subpel, partitions=cfg.partitions))
             v, ln = stage("cavlc_slots", lambda: df._finalize_p_core(
                 o, hv, hl, enc.mbh, enc.mbw))
         else:
@@ -93,10 +103,16 @@ def stage_lines(enc, prev, cur, card) -> list[str]:
                 *planes, enc.qp, enc.qpc))
             v, ln = stage("cavlc_slots", lambda: df._finalize_i_core(
                 o, hv, hl, enc.mbh, enc.mbw))
+        if cfg.deblock:
+            stage("deblock", lambda: df._maybe_deblock(
+                o, enc.qp, enc.mbh, enc.mbw, ftype == "I", True,
+                cfg.deblock_alpha, cfg.deblock_beta,
+                enc.pps.chroma_qp_index_offset))
         data, nbits = stage("pack", lambda: df.pack_slots(v, ln))
         payload = stage("pull", lambda: data[:(nbits + 7) // 8].cpu().numpy())
         stage("nal_wrap", lambda: wrap_nal(3, NAL_SLICE, payload))
         out.append(json.dumps({"stages": ftype, "ms": ms,
+                               "parts": bool(cfg.partitions),
                                "payload_bytes": int(payload.size),
                                "card": card}))
         print(out[-1], flush=True)
@@ -107,6 +123,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--parts", action="store_true",
+                    help="add --deblock 0:0 --partitions p8x8 --subme 7")
     ap.add_argument("--out", help="also write the JSON lines to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -118,7 +136,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=10).stdout.strip()
     frames = clip(args.width, args.height, 6)
-    s = CompressSession(extra_cmdline=CMDLINE)
+    s = CompressSession(extra_cmdline=CMDLINE + (PARTS if args.parts
+                                                 else ""))
     s.begin(args.width, args.height)
     for f in frames[:2]:                        # warm-up: I, P
         s.compress(f)
@@ -143,7 +162,8 @@ def main() -> int:
                 "device_ms": dev_ms, "busy_share": dev_ms / wall_ms,
                 "kernel_launches": len(kern),
                 "top_device_ms": [[k[:80], v / 1e3] for k, v in top],
-                "card": card, "size": [args.width, args.height]}
+                "card": card, "size": [args.width, args.height],
+                "parts": args.parts}
         lines.append(json.dumps(line))
         print(lines[-1], flush=True)
     lines += stage_lines(s.encoder, frames[3], frames[4], card)

@@ -11,11 +11,14 @@ The session owns config resolution (presets/flags), the encoder, the
 muxer, pts/dts bookkeeping and error stickiness.  It runs on the CUDA
 device unless built with device="cpu".
 
-This slice encodes x264's live-streaming configuration
+The port encodes x264's live-streaming configuration
 (--preset ultrafast --tune zerolatency, with --me esa/tesa): I16x16 +
-P16x16 CAVLC, one reference, integer-pel motion.  Options outside it
-raise NotImplementedError naming the ROADMAP queue; the session never
-encodes something other than what was asked.
+P16x16 CAVLC, one reference, integer-pel motion; and on top of it
+--deblock (the in-loop filter), --partitions p8x8 (16x16/16x8/8x16/8x8 P
+partitions) and, with P partitions, --subme 1-11 (half/quarter-pel
+refinement).  Options outside it raise NotImplementedError naming the
+ROADMAP queue; the session never encodes something other than what was
+asked.
 """
 
 from __future__ import annotations
@@ -61,15 +64,23 @@ class FramesInfo:
     delay: int = 0
 
 
+def _p_partitions(p: EncoderParams) -> bool:
+    """P partitions are on unless the list is 'none' (any p8x8 or p4x4
+    entry turns on the 8x8-grid split, as in the JAX package)."""
+    return "none" not in p.partitions and any(
+        k in p.partitions for k in ("p8x8", "p4x4"))
+
+
 def _out_of_slice(p: EncoderParams) -> list[str]:
     """Requested options this port cannot encode yet."""
-    parts = "none" not in p.partitions and any(
-        k in p.partitions for k in ("p8x8", "p4x4", "i4x4"))
+    intra_parts = "none" not in p.partitions and any(
+        k in p.partitions for k in ("i4x4", "i8x8"))
     return [name for name, on in (
         ("--bframes", p.bframes > 0), ("--cabac", p.cabac),
-        ("--deblock", p.deblock), ("--partitions", parts),
+        ("--partitions i4x4/i8x8", intra_parts),
         ("--8x8dct", p.dct8x8), ("--ref > 1", p.ref > 1),
-        ("--subme > 0", p.subme > 0),
+        ("--subme > 0 without --partitions p8x8",
+         p.subme > 0 and not _p_partitions(p)),
         (f"--me {p.me}", p.me not in ("esa", "tesa")),
         ("--aq-mode", p.aq_mode > 0), ("--trellis", p.trellis > 0),
         ("--weightp", p.weightp > 0), ("--mbtree", bool(p.mbtree)),
@@ -131,7 +142,10 @@ class CompressSession:
             num_ref_frames=max(1, min(p.ref, 4)),
             chroma_qp_offset=p.chroma_qp_offset,
             search_range=min(p.merange, 16),
-            subpel=0,
+            # --subme ladder: 0 = integer-pel, 1-3 = half, 4+ = quarter
+            subpel=0 if p.subme == 0 else (1 if p.subme <= 3 else 2),
+            partitions=_p_partitions(p),
+            deblock=p.deblock,
             deblock_alpha=p.deblock_alpha, deblock_beta=p.deblock_beta,
             fps_num=p.fps_num, fps_den=p.fps_den,
             nal_hrd=p.nal_hrd if p.nal_hrd in ("vbr", "cbr") else "none",

@@ -39,6 +39,14 @@
 //     deterministic.
 // The TPU kernel's bf16 byte-split matmuls, 128-lane padding, band
 // stacking and VMEM width strips have no counterpart here.
+//
+// Quad mode (x264t_sad_search_quad) replaces
+// x264vfw_tpu/ops/pallas/sad.py :: sad_search_quad (Pallas body _sad_kernel):
+// the same kernel, instantiated to write every offset's four quadrant SADs
+// unreduced, (K^2, 2mbh, 2mbw) int32 with entry [k, qy, qx] the SAD of the
+// 8x8 block at (8qy, 8qx) displaced by (k / K - R, k % K - R).  That output
+// is K^2 / 2.25 times the inputs' bytes (142 MB at 1080p, R = 16), so
+// this mode is bound by its stores; no encode path runs it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -76,11 +84,12 @@ __device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
   return v;
 }
 
+template <bool kQuad>
 __global__ void __launch_bounds__(kThreads)
 sad_partition_minima_kernel(const uint8_t* __restrict__ src,
                             const uint8_t* __restrict__ ref_pad, int W,
                             int R, int s0, int s1, int s2, int s3,
-                            Outputs out) {
+                            Outputs out, int32_t* __restrict__ quad) {
   extern __shared__ uint32_t smem[];
   __shared__ unsigned long long red[kPlanes][kWarps];
 
@@ -138,6 +147,16 @@ sad_partition_minima_kernel(const uint8_t* __restrict__ src,
         q3 += right;
       }
     }
+    if (kQuad) {
+      const int mbh = gridDim.y;
+      int32_t* o = quad + ((size_t)k * 2 * mbh + 2 * mby) * (2 * mbw) +
+                   2 * mbx;
+      o[0] = (int32_t)q0;
+      o[1] = (int32_t)q1;
+      o[2 * mbw] = (int32_t)q2;
+      o[2 * mbw + 1] = (int32_t)q3;
+      continue;
+    }
     const uint32_t cost[kPlanes] = {
         4u * (q0 + q1 + q2 + q3) + s0 * pen,
         4u * (q0 + q1) + s1 * pen, 4u * (q2 + q3) + s1 * pen,
@@ -152,6 +171,7 @@ sad_partition_minima_kernel(const uint8_t* __restrict__ src,
     }
   }
 
+  if (kQuad) return;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int j = 0; j < kPlanes; ++j) {
@@ -204,9 +224,27 @@ extern "C" int x264t_sad_partition_minima(
       static_cast<int32_t*>(v8), static_cast<int32_t*>(k8)};
   const dim3 grid(W / 16, H / 16);
   const size_t smem = 256 + (size_t)(16 + 2 * R) * window_stride(R);
-  sad_partition_minima_kernel<<<grid, kThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
+  sad_partition_minima_kernel<false><<<grid, kThreads, smem,
+                                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(src), static_cast<const uint8_t*>(ref_pad),
-      W, R, s0, s1, s2, s3, out);
+      W, R, s0, s1, s2, s3, out, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// Quad mode: every offset's unreduced quadrant SADs into `quad`
+// (K^2, 2H/16, 2W/16) int32.  Returns cudaGetLastError() after the launch.
+extern "C" int x264t_sad_search_quad(const void* src, const void* ref_pad,
+                                     int H, int W, int R, void* quad,
+                                     void* stream) {
+  if (H < 16 || W < 16 || H % 16 || W % 16 || R < 1 || R > kMaxR) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Outputs none = {};
+  const dim3 grid(W / 16, H / 16);
+  const size_t smem = 256 + (size_t)(16 + 2 * R) * window_stride(R);
+  sad_partition_minima_kernel<true><<<grid, kThreads, smem,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), static_cast<const uint8_t*>(ref_pad),
+      W, R, 0, 0, 0, 0, none, static_cast<int32_t*>(quad));
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,11 @@
 """Device encode pipeline (PyTorch): layout helpers, residual pipelines,
 integer-pel motion search + motion compensation, and the I / P cores.
 
-Port of x264vfw_tpu/encode/device.py for the slice this package carries:
-I16x16 with chroma intra, and P16x16 with one reference at integer-pel
-precision (`subpel=0`) found by exhaustive search.  Every function is
+Port of x264vfw_tpu/encode/device.py for the slices this package carries:
+I16x16 with chroma intra; P with one reference found by exhaustive
+search, either P16x16 at integer-pel precision (`subpel=0`) or the 8x8-grid
+partitions with half/quarter-pel refinement (encode/inter_partition.py);
+and the in-loop deblock of the reconstruction.  Every function is
 batched over macroblocks; sample arithmetic is int32, as in the JAX code.
 The outputs are the same syntax tensors (levels in zigzag + block coding
 order, CBPs, MVs, modes) and recon planes, bit for bit.
@@ -101,6 +103,60 @@ def _per_pixel(field: torch.Tensor, bs: int) -> torch.Tensor:
 # P-frame pipeline
 # --------------------------------------------------------------------------
 
+def _halfpel_planes(ref_pad: torch.Tensor):
+    """Spec half-pel planes of a padded reference (§8.4.2.2.1, 6-tap).
+
+    ref_pad: (Hp, Wp) int32, padded by >= 3 on every side beyond what the
+    caller reads.  Returns int32 (b, h, j) where, for integer coords
+    (y, x): b[y, x] is the sample at (y, x+1/2), h[y, x] at (y+1/2, x) and
+    j[y, x] at (y+1/2, x+1/2), computed from the unrounded b intermediate.
+    Valid on [3:-3] of each axis (the taps wrap around the edges)."""
+    def f6(a, dim):
+        r = torch.roll
+        return (r(a, 2, dim) - 5 * r(a, 1, dim) + 20 * a
+                + 20 * r(a, -1, dim) - 5 * r(a, -2, dim) + r(a, -3, dim))
+
+    a32 = ref_pad.to(torch.int32)
+    b1 = f6(a32, 1)
+    b = ((b1 + 16) >> 5).clamp(0, 255)
+    h = ((f6(a32, 0) + 16) >> 5).clamp(0, 255)
+    j = ((f6(b1, 0) + 512) >> 10).clamp(0, 255)
+    return b, h, j
+
+
+# quarter-pel sample = (P1 + P2 + 1) >> 1 of two {int, b, h, j} samples
+# (§8.4.2.2.1 Table 8-12).  For the fractional position (fx, fy) in
+# quarter units (mod 4), the two (plane, dx, dy) operands, offsets in full
+# pels; planes: 0 = int, 1 = b, 2 = h, 3 = j
+_QPEL_PAIRS = {
+    (0, 0): ((0, 0, 0), (0, 0, 0)),
+    (2, 0): ((1, 0, 0), (1, 0, 0)),
+    (0, 2): ((2, 0, 0), (2, 0, 0)),
+    (2, 2): ((3, 0, 0), (3, 0, 0)),
+    (1, 0): ((0, 0, 0), (1, 0, 0)),
+    (3, 0): ((1, 0, 0), (0, 1, 0)),
+    (0, 1): ((0, 0, 0), (2, 0, 0)),
+    (0, 3): ((2, 0, 0), (0, 0, 1)),
+    (2, 1): ((1, 0, 0), (3, 0, 0)),
+    (2, 3): ((3, 0, 0), (1, 0, 1)),
+    (1, 2): ((2, 0, 0), (3, 0, 0)),
+    (3, 2): ((3, 0, 0), (2, 1, 0)),
+    (1, 1): ((1, 0, 0), (2, 0, 0)),
+    (3, 1): ((1, 0, 0), (2, 1, 0)),
+    (1, 3): ((2, 0, 0), (1, 0, 1)),
+    (3, 3): ((2, 1, 0), (1, 0, 1)),
+}
+
+
+def _qpel_operands(tx: int, ty: int):
+    """Total quarter offset (tx, ty) from the integer-aligned origin ->
+    ((p1, o1x, o1y), (p2, o2x, o2y)) with offsets in full pels."""
+    fx, fy = tx % 4, ty % 4
+    ix, iy = (tx - fx) // 4, (ty - fy) // 4
+    (p1, a1x, a1y), (p2, a2x, a2y) = _QPEL_PAIRS[(fx, fy)]
+    return (p1, a1x + ix, a1y + iy), (p2, a2x + ix, a2y + iy)
+
+
 def _motion_search_and_mc(src_y, src_u, src_v, ref_y, ref_u, ref_v,
                           rng: int, subpel: int = 0,
                           me_backend: str = "auto"):
@@ -132,17 +188,22 @@ def _motion_search_and_mc(src_y, src_u, src_v, ref_y, ref_u, ref_v,
     xs = torch.arange(W, device=src_y.device)[None, :] + _per_pixel(dxb, 16)
     pred_y = ref_y[ys.clamp(0, H - 1), xs.clamp(0, W - 1)].to(torch.int32)
 
-    # chroma MC from the quarter-pel MV: integer offset mv_q >> 3, eighth-
-    # pel fraction mv_q & 7, bilinear over the edge-clamped reference
-    Hc, Wc = H // 2, W // 2
+    return (mv_q, pred_y, *_chroma_mc(mv_q, ref_u, ref_v, 8))
+
+
+def _chroma_mc(mv_q, ref_u, ref_v, bs: int):
+    """Chroma MC (§8.4.2.2.2) of blocks of bs x bs chroma samples, each at
+    its own quarter-pel luma vector mv_q (rows, cols, 2) [x, y]: integer
+    offset mv_q >> 3, eighth-pel fraction mv_q & 7, bilinear over the
+    edge-clamped reference.  Returns (pred_u, pred_v) int32."""
+    Hc, Wc = ref_u.shape
+    dev = ref_u.device
     ci = mv_q >> 3
     f = mv_q & 7
-    cy = torch.arange(Hc, device=src_y.device)[:, None] \
-        + _per_pixel(ci[..., 1], 8)
-    cx = torch.arange(Wc, device=src_y.device)[None, :] \
-        + _per_pixel(ci[..., 0], 8)
-    fx = _per_pixel(f[..., 0], 8)
-    fy = _per_pixel(f[..., 1], 8)
+    cy = torch.arange(Hc, device=dev)[:, None] + _per_pixel(ci[..., 1], bs)
+    cx = torch.arange(Wc, device=dev)[None, :] + _per_pixel(ci[..., 0], bs)
+    fx = _per_pixel(f[..., 0], bs)
+    fy = _per_pixel(f[..., 1], bs)
     y0, y1 = cy.clamp(0, Hc - 1), (cy + 1).clamp(0, Hc - 1)
     x0, x1 = cx.clamp(0, Wc - 1), (cx + 1).clamp(0, Wc - 1)
 
@@ -152,7 +213,7 @@ def _motion_search_and_mc(src_y, src_u, src_v, ref_y, ref_u, ref_v,
                 + (8 - fx) * fy * ref[y1, x0] + fx * fy * ref[y1, x1]
                 + 32) >> 6
 
-    return mv_q, pred_y, bil(ref_u), bil(ref_v)
+    return bil(ref_u), bil(ref_v)
 
 
 def _decimate_score(levels: torch.Tensor) -> torch.Tensor:
@@ -214,15 +275,28 @@ def _chroma_recon(pred_c8, dc_lv, ac_lv, qpc: int, use_dc, use_ac):
 
 def encode_p_frame_core(src_y, src_u, src_v, ref_y, ref_u, ref_v,
                         qp: int, qpc: int, rng: int = 8, subpel: int = 0,
-                        me_backend: str = "auto", decimate: bool = True):
-    """P-frame encode, one reference, P16x16.  All planes int32 at MB-
-    multiple size.  Returns syntax tensors + recon planes."""
+                        me_backend: str = "auto", decimate: bool = True,
+                        partitions: bool = False):
+    """P-frame encode, one reference: P16x16, or with `partitions` the
+    16x16/16x8/8x16/8x8 decision on the 8x8 grid (adds 'part' (n,) and
+    'mv8' (2mbh, 2mbw, 2) to the outputs).  All planes int32 at MB-
+    multiple size.  Returns syntax tensors + recon planes (pre-deblock)."""
     H, W = src_y.shape
-    n = (H // 16) * (W // 16)
+    mbh, mbw = H // 16, W // 16
+    n = mbh * mbw
     src_mbs = mbize(src_y)
-    mv_q4, pred_y_pl, pred_u_pl, pred_v_pl = _motion_search_and_mc(
-        src_y, src_u, src_v, ref_y, ref_u, ref_v, rng, subpel=subpel,
-        me_backend=me_backend)
+    part = mv8 = None
+    if partitions:
+        from .inter_partition import partition_search_and_mc
+        part, mv8, pred_y_pl, pred_u_pl, pred_v_pl = partition_search_and_mc(
+            src_y, src_u, src_v, ref_y, ref_u, ref_v, rng, qp, subpel)
+        # per-MB field: the per-component max |mv| over the quadrants (the
+        # JAX package's colocated-motion summary)
+        mv_q4 = mv8.abs().reshape(mbh, 2, mbw, 2, 2).amax(dim=(1, 3))
+    else:
+        mv_q4, pred_y_pl, pred_u_pl, pred_v_pl = _motion_search_and_mc(
+            src_y, src_u, src_v, ref_y, ref_u, ref_v, rng, subpel=subpel,
+            me_backend=me_backend)
 
     pred = mbize(pred_y_pl)
     levels, recon_res = _luma_residual_pipeline(
@@ -254,7 +328,7 @@ def encode_p_frame_core(src_y, src_u, src_v, ref_y, ref_u, ref_v,
     use_ac = cbp_chroma == 2
     rec_u = _chroma_recon(pred_u, dc_u, ac_u, qpc, use_dc, use_ac)
     rec_v = _chroma_recon(pred_v, dc_v, ac_v, qpc, use_dc, use_ac)
-    return {
+    out = {
         "mv": mv_q4.reshape(n, 2),      # (n, 2) quarter-pel
         "levels": levels,               # (n, 16, 16) zigzag, block order
         "cbp_luma": cbp_luma,
@@ -265,6 +339,10 @@ def encode_p_frame_core(src_y, src_u, src_v, ref_y, ref_u, ref_v,
         "recon_u": unmbize(rec_u, H // 2, W // 2, 8),
         "recon_v": unmbize(rec_v, H // 2, W // 2, 8),
     }
+    if part is not None:
+        out["part"] = part.reshape(n)
+        out["mv8"] = mv8
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -340,3 +418,49 @@ def _finish_intra_mb(sy, pred_y, levels, res_mb, su, pu, sv, pv,
         "dc_u": dc_u, "dc_v": dc_v, "ac_u": ac_u, "ac_v": ac_v,
         "recon_y": recon_y, "recon_u": rec_u, "recon_v": rec_v,
     }
+
+
+def loop_filter_maps(out, qp: int, mbh: int, mbw: int, intra: bool,
+                     offA: int = 0, offB: int = 0, qpc_offset: int = 0):
+    """The deblock edge maps of a frame from the encoder's own syntax
+    tensors: per-4x4 total_coeff of the cbp-masked levels, the motion
+    field broadcast to 4x4 blocks (mv8 where the frame has partitions), an
+    all-intra or all-inter frame, one reference, a constant QP.  offA/offB
+    are the full (2 * div2) slice offsets.  Returns (mapsV, mapsH, mapsVc,
+    mapsHc) int32, contiguous."""
+    from ..ops.deblock import build_maps
+    dev = out["recon_y"].device
+    rep = torch.repeat_interleave
+    if intra:
+        tc4 = torch.zeros(4 * mbh, 4 * mbw, dtype=torch.int32, device=dev)
+        mv4 = torch.zeros(4 * mbh, 4 * mbw, 2, dtype=torch.int32, device=dev)
+    else:
+        quad = ((out["cbp_luma"][:, None]
+                 >> (torch.arange(16, device=dev) // 4)) & 1).bool()
+        lv = out["levels"] * quad[:, :, None]
+        tc_blk = (lv != 0).sum(-1, dtype=torch.int32)   # (n, 16) block order
+        raster = tc_blk.index_select(1, _idx(_INV16, dev))
+        tc4 = (raster.reshape(mbh, mbw, 4, 4).permute(0, 2, 1, 3)
+               .reshape(4 * mbh, 4 * mbw))
+        if "mv8" in out:
+            mv4 = rep(rep(out["mv8"], 2, 0), 2, 1)
+        else:
+            mv4 = rep(rep(out["mv"].reshape(mbh, mbw, 2), 4, 0), 4, 1)
+    intra_map = torch.full((mbh, mbw), intra, dtype=torch.bool, device=dev)
+    ref4 = torch.zeros(4 * mbh, 4 * mbw, dtype=torch.int32, device=dev)
+    qp_map = torch.full((mbh, mbw), qp, dtype=torch.int32, device=dev)
+    maps = build_maps(intra_map, tc4, mv4, ref4, qp_map, offA, offB,
+                      qpc_offset)
+    return tuple(m.contiguous() for m in maps)
+
+
+def apply_loop_filter(out, qp: int, mbh: int, mbw: int, intra: bool,
+                      offA: int = 0, offB: int = 0, qpc_offset: int = 0):
+    """In-loop deblock (exact §8.7) of the recon planes in `out` with the
+    maps of loop_filter_maps.  Returns filtered (y, u, v) int32."""
+    from ..ops.kernels.deblock import deblock_apply
+    maps = loop_filter_maps(out, qp, mbh, mbw, intra, offA, offB,
+                            qpc_offset)
+    return deblock_apply(*(out[k].contiguous()
+                           for k in ("recon_y", "recon_u", "recon_v")),
+                         *maps)

@@ -1,15 +1,17 @@
 """Device-side slice finalisation: syntax tensors -> slots -> packed bytes.
 
-Port of the I and P16x16 parts of x264vfw_tpu/encode/device_finalize.py.
+Port of the I and one-reference P parts (P16x16 and the 8x8-grid
+partitions) of x264vfw_tpu/encode/device_finalize.py, with the in-loop
+deblock of the reference planes.
 Everything between the per-MB compute and the NAL wrapper runs on the
 device: MV prediction, skip-run derivation, nC context maps, CAVLC slot
 generation (bitstream/cavlc_dev) and bit packing (device_pack).  The host
 receives the packed payload bytes, about the size of the bitstream.
 
 Slot layout differs from the JAX code only in slots that are always
-zero-length in this slice (I_NxN modes and residual, ref_idx,
-transform_size_8x8_flag): the packer drops zero-length slots, so the
-packed bytes are the same.
+zero-length in the ported configurations (I_NxN modes and residual,
+ref_idx, transform_size_8x8_flag): the packer drops zero-length slots, so
+the packed bytes are the same.
 
 Slice-header bits are assembled on the host and passed in as slot arrays.
 """
@@ -180,18 +182,60 @@ def _tail(hdr_lens, mb_lens, trailing=None):
             torch.cat([tl, (1 + pad).reshape(1).to(torch.int32)]))
 
 
-def _finalize_p_core(out, hdr_vals, hdr_lens, mbh: int, mbw: int):
-    """P-slice syntax tensors (one reference, P16x16) -> slot rows."""
+def _mb_header_p16(out, mbh: int, mbw: int, cbp):
+    """P16x16 header slots [mb_type, mvd x, mvd y] and the skip flags."""
     n = mbh * mbw
-    dev = out["mv"].device
     mv = out["mv"].reshape(mbh, mbw, 2)
-    cbp_luma = out["cbp_luma"]
-    cbp = cbp_luma | (out["cbp_chroma"] << 4)
-
     pmv, skip_zero = p16_mv_pred(mv)
     mv_flat = mv.reshape(n, 2)
     skip = (cbp == 0) & (mv_flat == 0).all(dim=1) & skip_zero.reshape(n)
     mvd = mv_flat - pmv.reshape(n, 2)
+    xv, xl = cd.se_codes_dev(mvd[:, 0])
+    yv, yl = cd.se_codes_dev(mvd[:, 1])
+    one = torch.ones(n, dtype=torch.int64, device=mv.device)
+    return (torch.stack([one, xv, yv], dim=1),     # ue(P_L0_16x16 = 0) = '1'
+            torch.stack([one.int(), xl, yl], dim=1), skip)
+
+
+def _mb_header_parts(out, mbh: int, mbw: int, cbp):
+    """Partitioned P header slots [mb_type, sub_mb_type x 4, (mvd x,
+    mvd y) x 4 quadrant slots] and the skip flags.  mvd pairs go in
+    quadrant raster order, which is the partitions' decode order for every
+    layout; slots a layout does not use are zero-length."""
+    from .inter_partition import partition_mvds
+    n = mbh * mbw
+    part = out["part"]
+    mv8 = out["mv8"]
+    mvd8, nslot, skip_zero = partition_mvds(mv8, part.reshape(mbh, mbw))
+    mv00 = mv8[0::2, 0::2].reshape(n, 2)
+    skip = ((cbp == 0) & (part == 0) & (mv00 == 0).all(dim=1)
+            & skip_zero.reshape(n))
+    mvd4 = mvd8.reshape(mbh, 2, mbw, 2, 2).permute(0, 2, 1, 3, 4) \
+        .reshape(n, 4, 2)
+    nsl4 = nslot.reshape(mbh, 2, mbw, 2).permute(0, 2, 1, 3).reshape(n, 4)
+    tv, tl = cd.ue_codes_dev(part)
+    # sub_mb_type P_L0_8x8 = ue(0) = '1', only in P_8x8 MBs
+    is8 = (part == 3).int()
+    vals, lens = [tv], [tl]
+    vals += [torch.ones_like(tv)] * 4
+    lens += [is8] * 4
+    for q in range(4):
+        for c in range(2):
+            v, ln = cd.se_codes_dev(mvd4[:, q, c])
+            vals.append(v)
+            lens.append(ln * nsl4[:, q])
+    return torch.stack(vals, dim=1), torch.stack(lens, dim=1), skip
+
+
+def _finalize_p_core(out, hdr_vals, hdr_lens, mbh: int, mbw: int):
+    """P-slice syntax tensors (one reference; P16x16, or the 8x8-grid
+    partitions when `out` has 'part') -> slot rows."""
+    n = mbh * mbw
+    dev = out["mv"].device
+    cbp_luma = out["cbp_luma"]
+    cbp = cbp_luma | (out["cbp_chroma"] << 4)
+    head = _mb_header_parts if "part" in out else _mb_header_p16
+    tv, tl, skip = head(out, mbh, mbw, cbp)
 
     i = torch.arange(n, dtype=torch.int32, device=dev)
     ns = ~skip
@@ -208,16 +252,15 @@ def _finalize_p_core(out, hdr_vals, hdr_lens, mbh: int, mbw: int):
     vlu, llu = cd.encode_blocks(levels.reshape(-1, 16), nc_l.reshape(-1), 16)
     llu = llu.reshape(n, 16, S) * quad_coded[:, :, None]
 
-    # header slots: [mb_skip_run, mb_type, mvd x, mvd y, cbp, qp_delta]
+    # header slots: [mb_skip_run, <type and mvds>, cbp, qp_delta]
     rv, rl = cd.ue_codes_dev(runs)
-    xv, xl = cd.se_codes_dev(mvd[:, 0])
-    yv, yl = cd.se_codes_dev(mvd[:, 1])
     code = torch.as_tensor(CBP_TO_CODE[0], device=dev)[cbp.long()]
     bv, bl = cd.ue_codes_dev(code)
     one = torch.ones(n, dtype=torch.int64, device=dev)
-    hv = torch.stack([rv, one, xv, yv, bv, one], dim=1)
-    hl = torch.stack([rl, one.int(),   # ue(P_L0_16x16 = 0) = '1'
-                      xl, yl, bl, (cbp != 0).int()], dim=1)   # se(0)
+    hv = torch.cat([rv[:, None], tv, torch.stack([bv, one], dim=1)], dim=1)
+    hl = torch.cat([rl[:, None], tl,
+                    torch.stack([bl, (cbp != 0).int()], dim=1)],  # se(0)
+                   dim=1)
 
     cv, cl = _chroma_slots(out, n, mbh, mbw)
     mb_vals = torch.cat([hv, vlu.reshape(n, -1), cv], dim=1)
@@ -265,31 +308,50 @@ def _unpack_src(src_yuv: torch.Tensor, H: int, W: int):
             src_yuv[ys + cs:].reshape(H // 2, W // 2).to(torch.int32))
 
 
-def encode_i_slots_fn(H: int, W: int):
+def _maybe_deblock(out, qp: int, mbh: int, mbw: int, intra: bool,
+                   deblock: bool, dbA: int, dbB: int, qpc_offset: int):
+    """The reference planes to keep: deblocked when the slice filters."""
+    if not deblock:
+        return out["recon_y"], out["recon_u"], out["recon_v"]
+    from .device import apply_loop_filter
+    return apply_loop_filter(out, qp, mbh, mbw, intra, offA=2 * dbA,
+                             offB=2 * dbB, qpc_offset=qpc_offset)
+
+
+def encode_i_slots_fn(H: int, W: int, deblock: bool = False, dbA: int = 0,
+                      dbB: int = 0, qpc_offset: int = 0):
     """The fused I-frame phase 1 for a geometry: unpack the uint8 frame ->
-    I encode -> slot rows.  The returned function gives (slot_vals,
-    slot_lens, recon_y, recon_u, recon_v)."""
+    I encode -> slot rows, and the (deblocked when `deblock`) recon.  The
+    returned function gives (slot_vals, slot_lens, recon_y, recon_u,
+    recon_v)."""
     from .device import encode_i_frame_core
 
     def fn(src_yuv, qp: int, qpc: int, hdr_vals, hdr_lens):
         out = encode_i_frame_core(*_unpack_src(src_yuv, H, W), qp, qpc)
         v, l = _finalize_i_core(out, hdr_vals, hdr_lens, H // 16, W // 16)
-        return v, l, out["recon_y"], out["recon_u"], out["recon_v"]
+        return (v, l, *_maybe_deblock(out, qp, H // 16, W // 16, True,
+                                      deblock, dbA, dbB, qpc_offset))
 
     return fn
 
 
 def encode_p_slots(src_yuv, ref_y, ref_u, ref_v, qp: int, qpc: int,
                    hdr_vals, hdr_lens, rng: int, subpel: int = 0,
-                   me_backend: str = "auto"):
+                   me_backend: str = "auto", deblock: bool = False,
+                   dbA: int = 0, dbB: int = 0, qpc_offset: int = 0,
+                   partitions: bool = False):
     """Fused P-frame phase 1: unpack the uint8 frame -> P encode -> slot
-    rows.  Returns (slot_vals, slot_lens, recon_y, recon_u, recon_v, mv)."""
+    rows, and the (deblocked when `deblock`) recon.  Returns (slot_vals,
+    slot_lens, recon_y, recon_u, recon_v, out): `out` holds the syntax
+    tensors, among them 'mv' and, with partitions, 'part' and 'mv8'."""
     from .device import encode_p_frame_core
     H, W = ref_y.shape
     out = encode_p_frame_core(*_unpack_src(src_yuv, H, W), ref_y, ref_u,
-                              ref_v, qp, qpc, rng, subpel, me_backend)
+                              ref_v, qp, qpc, rng, subpel, me_backend,
+                              partitions=partitions)
     v, l = _finalize_p_core(out, hdr_vals, hdr_lens, H // 16, W // 16)
-    return v, l, out["recon_y"], out["recon_u"], out["recon_v"], out["mv"]
+    return (v, l, *_maybe_deblock(out, qp, H // 16, W // 16, False, deblock,
+                                  dbA, dbB, qpc_offset), out)
 
 
 def finalize_i(out, hdr_vals, hdr_lens, mbh: int, mbw: int):

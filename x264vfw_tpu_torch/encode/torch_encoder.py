@@ -3,9 +3,10 @@
 Port of the per-frame device CAVLC path of
 x264vfw_tpu/encode/tpu_encoder.py :: TpuEncoder for I and P frames:
 push_frame -> encode_frame -> one uint8 upload, the fused I or P phase 1
-(encode/device_finalize.py), a pack sized from the slot lengths, one
-pull of the payload bytes, and the NAL wrap on the host.  Reference
-frames stay on the device between frames.
+(encode/device_finalize.py, with the in-loop deblock when the config
+asks for it), a pack sized from the slot lengths, one pull of the payload
+bytes, and the NAL wrap on the host.  Reference frames (deblocked when
+the slice filters) stay on the device between frames.
 
 Header conventions (SPS profile/level/DPB size, PPS, slice headers,
 version SEI) are the JAX package's, byte for byte.
@@ -31,10 +32,10 @@ def _unsupported(cfg: EncoderConfig) -> list[str]:
     """Options of cfg that this port does not carry yet."""
     out = []
     for name, on in (("bframes", cfg.bframes > 0), ("cabac", cfg.cabac),
-                     ("deblock", cfg.deblock), ("partitions", cfg.partitions),
                      ("i4x4", cfg.i4x4), ("dct8x8", cfg.dct8x8),
                      ("ref > 1", cfg.num_ref_frames > 1),
-                     ("subme > 0", cfg.subpel != 0),
+                     ("subme > 0 without P partitions",
+                      cfg.subpel != 0 and not cfg.partitions),
                      ("hierarchical ME", cfg.me_backend.endswith(":hier")),
                      ("aq", cfg.aq_strength > 0), ("trellis", cfg.trellis),
                      ("weightp", cfg.weightp > 0),
@@ -93,6 +94,7 @@ class TorchEncoder:
         self._last_idr_d: int | None = None
         self.ref: tuple | None = None  # device (y, u, v) int32 recon
         self.last_mv = None            # device (n, 2) mv field of last P
+        self.last_mv8 = None           # its 8x8-grid field, with partitions
         self.qp = cfg.qp
         self.qpc = int(tables.chroma_qp(cfg.qp, self.pps.chroma_qp_index_offset))
         self._i_full = None            # I-frame phase 1 for this geometry
@@ -171,16 +173,22 @@ class TorchEncoder:
             nal_type = NAL_SLICE_IDR
             hv, hl = self._header_slots(SLICE_I, nal_type)
             if self._i_full is None:
-                self._i_full = device_finalize.encode_i_slots_fn(H, W)
+                self._i_full = device_finalize.encode_i_slots_fn(
+                    H, W, cfg.deblock, cfg.deblock_alpha, cfg.deblock_beta,
+                    qpc_offset=self.pps.chroma_qp_index_offset)
             sv_, sl_, ry, ru, rv = self._i_full(src_d, self.qp, self.qpc,
                                                 hv, hl)
         else:
             nal_type = NAL_SLICE
             hv, hl = self._header_slots(SLICE_P, nal_type)
-            sv_, sl_, ry, ru, rv, mv = device_finalize.encode_p_slots(
+            sv_, sl_, ry, ru, rv, out = device_finalize.encode_p_slots(
                 src_d, *self.ref, self.qp, self.qpc, hv, hl,
-                cfg.search_range, cfg.subpel, cfg.me_backend)
-            self.last_mv = mv
+                cfg.search_range, cfg.subpel, cfg.me_backend,
+                cfg.deblock, cfg.deblock_alpha, cfg.deblock_beta,
+                qpc_offset=self.pps.chroma_qp_index_offset,
+                partitions=cfg.partitions)
+            self.last_mv = out["mv"]
+            self.last_mv8 = out.get("mv8")
         data, nbits = device_finalize.pack_phase(sv_, sl_)
         payload = data[:(nbits + 7) // 8].cpu().numpy()
         self.ref = (ry, ru, rv)
@@ -213,7 +221,8 @@ class TorchEncoder:
                             (1 << (self.sps.log2_max_pic_order_cnt_lsb_minus4
                                    + 4)) - 1),
                         slice_qp_delta=self.qp - (26 + self.pps.pic_init_qp_minus26),
-                        disable_deblocking_filter_idc=1,
+                        disable_deblocking_filter_idc=0 if self.cfg.deblock
+                        else 1,
                         slice_alpha_c0_offset_div2=self.cfg.deblock_alpha,
                         slice_beta_offset_div2=self.cfg.deblock_beta)
         h.write(w, self.sps, self.pps, nal_type, nal_ref_idc)

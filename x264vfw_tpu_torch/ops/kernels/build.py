@@ -14,6 +14,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -54,33 +55,49 @@ def _start(name: str):
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
            os.path.join(CSRC_DIR, name + ".cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    # the compiler's messages go to a file: a full pipe would stall nvcc
+    log = open(tmp + ".log", "w+")
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+    return proc, tmp, out, log
 
 
 def _finish(name: str, started) -> None:
     if started is None:
         return
-    proc, tmp, out = started
-    log, _ = proc.communicate()
+    proc, tmp, out, log = started
+    proc.wait()
+    log.seek(0)
+    text = log.read()
+    log.close()
+    os.unlink(log.name)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{text}")
     os.replace(tmp, out)
 
 
-def build(names) -> None:
-    """Compile every named source at once (one nvcc each, in parallel)."""
+def build(names) -> dict:
+    """Compile every named source at once (one nvcc each, in parallel).
+    Returns the seconds from the start until each nvcc ended (0.0 for a
+    library that was already built)."""
+    t0 = time.time()
     started = {n: _start(n) for n in names}
+    seconds = {n: 0.0 for n in names}
+    pending = {n for n, s in started.items() if s is not None}
+    while pending:                    # note when each nvcc ends
+        for n in [n for n in pending if started[n][0].poll() is not None]:
+            seconds[n] = time.time() - t0
+            pending.discard(n)
+        time.sleep(0.02)
     errors = []
-    for n, s in started.items():      # wait for every nvcc before raising
+    for n, s in started.items():      # every nvcc has ended; then raise
         try:
             _finish(n, s)
         except RuntimeError as e:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
+    return seconds
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,7 +1,8 @@
 """Full-search SAD with in-kernel argmin per partition shape.
 
 Port of x264vfw_tpu/ops/pallas/sad.py :: sad_partition_minima (and its
-16x16 view sad16_argmin).  On a CUDA tensor the wrapper launches the
+16x16 view sad16_argmin), and of sad_search_quad (and its 16x16 sum
+sad_search) as a second output mode of the same kernel.  On a CUDA tensor the wrapper launches the
 hand-written sm_90a kernel in csrc/sad.cu; on a CPU tensor it runs the
 plain PyTorch version below, which the CPU tests hold against the JAX
 package and chip_smoke.py holds the kernel against on the card.
@@ -12,6 +13,9 @@ for X in (16x16, 16x8, 8x16, 8x8); ties go to the smallest offset id
 k = (dy+R)*K + (dx+R), K = 2R+1.  Returns int32 tensors
   v16/k16 (mbh, mbw), v168/k168 (mbh, mbw, 2 [top, bottom]),
   v816/k816 (mbh, mbw, 2 [left, right]), v8/k8 (2mbh, 2mbw).
+Quad mode: the unreduced quadrant SADs (K^2, 2mbh, 2mbw) int32, entry
+[k, qy, qx] the SAD of the 8x8 block at (8qy, 8qx) against the reference
+displaced by (dy, dx) = (k // K - R, k % K - R).
 """
 
 from __future__ import annotations
@@ -28,18 +32,24 @@ LAUNCHES = 0
 MAX_R = 32          # shared-memory window limit of the kernel
 NAMES = ("v16", "k16", "v168", "k168", "v816", "k816", "v8", "k8")
 
-_fn = None
+_fns: dict = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("sad").x264t_sad_partition_minima
-        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p] * 9)
+def _kernel(quad: bool = False):
+    fn = _fns.get(quad)
+    if fn is None:
+        lib = build.load("sad")
+        if quad:
+            fn = lib.x264t_sad_search_quad
+            fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p] * 2)
+        else:
+            fn = lib.x264t_sad_partition_minima
+            fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+                           + [ctypes.c_void_p] * 9)
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[quad] = fn
+    return fn
 
 
 def _out_shapes(mbh: int, mbw: int) -> dict:
@@ -139,3 +149,51 @@ def sad_partition_minima_plain(src_y: torch.Tensor, ref_pad: torch.Tensor,
                 arg["k" + name] = arg["k" + name].masked_fill(upd, k)
     return {k: (best[k] if k[0] == "v" else arg[k]).contiguous()
             for k in NAMES}
+
+
+def sad_search_quad(src_y: torch.Tensor, ref_pad: torch.Tensor,
+                    R: int) -> torch.Tensor:
+    """Unreduced quadrant SADs (K^2, 2mbh, 2mbw) int32; see the module
+    doc.  On a CUDA tensor: the kernel's quad mode."""
+    global LAUNCHES
+    _check(src_y, ref_pad, R, (0, 0, 0, 0))
+    if src_y.device.type == "cpu":
+        return sad_search_quad_plain(src_y, ref_pad, R)
+    if src_y.device.type != "cuda":
+        raise ValueError(f"no kernel for device {src_y.device}")
+    H, W = src_y.shape
+    K = 2 * R + 1
+    out = torch.empty(K * K, H // 8, W // 8, dtype=torch.int32,
+                      device=src_y.device)
+    stream = torch.cuda.current_stream(src_y.device).cuda_stream
+    rc = _kernel(quad=True)(src_y.data_ptr(), ref_pad.data_ptr(), H, W, R,
+                            out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"sad_search_quad launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return out
+
+
+def sad_search(src_y: torch.Tensor, ref_pad: torch.Tensor,
+               R: int) -> torch.Tensor:
+    """16x16 SADs (K^2, mbh, mbw) int32: the sum of sad_search_quad's
+    quadrants."""
+    q = sad_search_quad(src_y, ref_pad, R)
+    KK, qh, qw = q.shape
+    return q.reshape(KK, qh // 2, 2, qw // 2, 2).sum((2, 4),
+                                                     dtype=torch.int32)
+
+
+def sad_search_quad_plain(src_y: torch.Tensor, ref_pad: torch.Tensor,
+                          R: int) -> torch.Tensor:
+    """Plain PyTorch version: one full-plane absolute difference and 8x8
+    block sum per offset (the counterpart of the JAX package's XLA branch
+    of inter_partition._quad_sads)."""
+    H, W = src_y.shape
+    K = 2 * R + 1
+    src = src_y.to(torch.int32)
+    ref = ref_pad.to(torch.int32)
+    return torch.stack([
+        (src - ref[oy:oy + H, ox:ox + W]).abs()
+        .reshape(H // 8, 8, W // 8, 8).sum((1, 3), dtype=torch.int32)
+        for oy in range(K) for ox in range(K)])
