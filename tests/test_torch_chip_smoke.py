@@ -41,12 +41,17 @@ class _Event:
         return (other.t - self.t) * 1e3
 
 
-def test_rehearsal_on_cpu(monkeypatch, capsys):
+def _chip_smoke():
     sys.path.insert(0, ROOT)
     try:
         import chip_smoke as cs
     finally:
         sys.path.remove(ROOT)
+    return cs
+
+
+def test_rehearsal_on_cpu(monkeypatch, capsys):
+    cs = _chip_smoke()
     from x264vfw_tpu_torch.encode import inter_partition as tip
     from x264vfw_tpu_torch.ops.kernels import build
     from x264vfw_tpu_torch.ops.kernels import deblock as dbk
@@ -60,6 +65,11 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(cs, "MEMC_SHAPES", ((48, 64, 4), (32, 48, 6)))
     monkeypatch.setattr(cs, "DEBLOCK_MBS", ((3, 4), (2, 5)))
     monkeypatch.setattr(cs, "card_line", lambda: "cpu, 0 W")
+    monkeypatch.setattr(cs, "sm_clock_hz", lambda: 1.98e9)
+    monkeypatch.setattr(cs, "sad_sass_per_sad4", lambda: None)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda *a: type("P", (), {
+                            "multi_processor_count": 132}))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "cpu")
@@ -84,9 +94,8 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(tip, "sad_partition_minima", sad)
     monkeypatch.setattr(memck, "partition_refine_mc", memc)
     monkeypatch.setattr(tip, "partition_refine_mc", memc)
-    monkeypatch.setattr(dbk, "deblock_apply", counted(
-        dbk, dbk.deblock_apply,
-        lambda y, *a: dbk.diagonals(y.shape[0] // 16, y.shape[1] // 16)))
+    monkeypatch.setattr(dbk, "deblock_apply",
+                        counted(dbk, dbk.deblock_apply))
     assert cs.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == {"ok": True, "device": {
@@ -98,7 +107,31 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in kern)
-    assert [k["launches"] for k in kern] == [5, 5, 6 * (2 * 5 + 8)]
+    assert [k["launches"] for k in kern] == [5, 5, 6]
+    assert kern[2]["launches_per_frame"] == 1
     assert kern[0]["slice1_launches"] == 3
+    H, W, R = kern[0]["shape"]     # one VABSDIFF4 per 4 byte differences
+    assert kern[0]["int_bound_ms"] == pytest.approx(
+        (2 * R + 1) ** 2 * H * W / 4 / (132 * 64 * 1.98e9) * 1e3)
     assert all(k["max_abs_err"] == 0 for k in kern)
     assert lines[-3] == "cpu, 0 W"
+
+
+def test_sass_count_per_sad4():
+    """The SASS reader behind the sad record's sass_per_sad4: mnemonics in
+    program order from cuobjdump's listing, and instructions per 4-pixel
+    SAD over the span from the first VABSDIFF4 to the last."""
+    cs = _chip_smoke()
+    text = """
+        Function : _Z3sadv
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x0 */
+        /*0010*/                   VABSDIFF4.U8.ACC R3, R2, R4, R3 ;
+        /*0020*/              @!P0 PRMT R5, R2, 0x4321, R4 ;
+        /*0030*/                   VABSDIFF4.U8.ACC R3, R5, R4, R3 ;
+        /*0040*/                   EXIT ;
+"""
+    listing = cs.parse_sass(text)
+    assert listing == {"_Z3sadv": ["LDC", "VABSDIFF4", "PRMT", "VABSDIFF4",
+                                   "EXIT"]}
+    assert cs.per_sad4(listing["_Z3sadv"]) == 1.5
+    assert cs.per_sad4(["LDC", "EXIT"]) is None

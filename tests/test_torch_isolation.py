@@ -6,7 +6,8 @@
   none, instead of carrying on on the CPU.
 * Options outside the ported slices raise NotImplementedError naming the
   ROADMAP instead of encoding something else (--subme > 0 is ported only
-  with P partitions).
+  with P partitions), and so does a session the JAX package would batch
+  (BatchPipeline is not ported).
 """
 
 import ast
@@ -87,3 +88,21 @@ def test_other_containers_raise():
     assert type(select_muxer("out.264")).__name__ == "RawMuxer"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         select_muxer("out.mp4")
+
+
+@pytest.mark.parametrize("extra,refused", [("", True),
+                                           (" --tune zerolatency", False),
+                                           (" --threads 1", False)])
+def test_batched_session_refused(extra, refused):
+    """A session the JAX package would send to BatchPipeline (no
+    zero-latency tune, --threads other than 1) is refused at begin();
+    zero-latency and --threads 1 sessions run per frame there too."""
+    from x264vfw_tpu_torch.api import CompressSession
+    s = CompressSession(extra_cmdline="--preset ultrafast --me esa --crf 23"
+                        + extra, device="cpu")
+    if refused:
+        with pytest.raises(NotImplementedError, match="batched session"):
+            s.begin(64, 48)
+    else:
+        s.begin(64, 48)
+        s.end()

@@ -56,7 +56,7 @@ def test_sad16_argmin_matches_xla_argmin():
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "radius", "scales",
-                                 "contiguous"])
+                                 "scale_too_large", "contiguous"])
 def test_wrapper_rejects_bad_inputs(bad):
     src, refp = _planes(32, 48, 4, seed=1)
     s, r, R, sc = torch.from_numpy(src), torch.from_numpy(refp), 4, (4, 2, 2, 1)
@@ -68,6 +68,8 @@ def test_wrapper_rejects_bad_inputs(bad):
         R = 40
     elif bad == "scales":
         sc = (4, 2, -1, 1)
+    elif bad == "scale_too_large":
+        sc = (tsad.MAX_SCALE + 1, 2, 2, 1)
     else:
         s = s.t().contiguous().t()
     with pytest.raises((TypeError, ValueError)):
@@ -88,7 +90,8 @@ def test_cpu_tensor_takes_plain_version():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,W,R", [(1088, 1920, 16), (48, 320, 4),
-                                   (64, 80, 8), (32, 272, 16)])
+                                   (64, 80, 8), (32, 272, 16), (32, 48, 1),
+                                   (64, 64, 32)])
 def test_kernel_matches_plain_on_card(H, W, R):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -107,3 +110,4 @@ def test_kernel_matches_plain_on_card(H, W, R):
     want = tsad.sad_search_quad_plain(s, r, R)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+

@@ -87,7 +87,19 @@ def _out_of_slice(p: EncoderParams) -> list[str]:
         ("--scenecut", p.scenecut > 0),
         ("--threads > 1 (multi-device)", p.threads > 1),
         ("--psnr/--ssim", bool(p.psnr or p.ssim)),
+        ("the batched session (no --tune zerolatency and --threads other "
+         "than 1; ROADMAP.md queue A2, BatchPipeline)",
+         _batched(p)),
     ) if on]
+
+
+def _batched(p: EncoderParams) -> bool:
+    """True where x264vfw_tpu/api.py sends the session to BatchPipeline
+    (its --psnr/--ssim and --threads > 1 branches are refused above):
+    not zero-latency and --threads other than 1."""
+    zero_latency = (p.bframes == 0 and not p.mbtree
+                    and p.sync_lookahead == 0)
+    return not zero_latency and p.threads != 1
 
 
 class CompressSession:

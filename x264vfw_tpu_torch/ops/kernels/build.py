@@ -3,7 +3,9 @@
 Each source is compiled on its own into a shared library with a plain C
 interface, at first use, into x264vfw_tpu_torch/_build/.  The library's
 file name carries a hash of the source, so an edited source is rebuilt
-and an unchanged one is loaded as it is.  Nothing here runs at import.
+and an unchanged one is loaded as it is.  What nvcc printed (with
+-Xptxas -v: registers, shared memory and spills per kernel) is kept beside
+the library (report_path).  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -43,6 +45,11 @@ def library_path(name: str) -> str:
     with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def report_path(name: str) -> str:
+    """Path of what nvcc printed when it built library_path(name)."""
+    return library_path(name)[:-3] + ".log"
 
 
 def _start(name: str):
@@ -69,10 +76,11 @@ def _finish(name: str, started) -> None:
     log.seek(0)
     text = log.read()
     log.close()
-    os.unlink(log.name)
     if proc.returncode != 0:
+        os.unlink(log.name)
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{text}")
+    os.replace(log.name, report_path(name))
     os.replace(tmp, out)
 
 

@@ -3,9 +3,11 @@
 Port of x264vfw_tpu/ops/pallas/deblock.py :: deblock_apply, which computes
 what x264vfw_tpu/ops/deblock.py :: deblock_apply_wavefront computes on the
 JAX hot path.  On a CUDA tensor the wrapper launches the hand-written
-sm_90a kernel in csrc/deblock.cu once per wavefront step; on a CPU tensor
-it runs the plain PyTorch version below, which the CPU tests hold against
-the JAX package and chip_smoke.py holds the kernel against on the card.
+sm_90a kernel in csrc/deblock.cu once per frame (one CTA per MB row, each
+row one MB behind the row above, through progress counters in a zeroed
+int32 scratch tensor); on a CPU tensor it runs the plain PyTorch version
+below, which the CPU tests hold against the JAX package and chip_smoke.py
+holds the kernel against on the card.
 
 Contract: y (H, W), u/v (H/2, W/2) int32 reconstruction planes at
 MB-multiple size; mapsV (H, 4mbw), mapsH (4mbh, W), mapsVc (H/2, 2mbw),
@@ -19,7 +21,10 @@ columns of (r, c-1) next to its left edge and the rows of (r-1, c) above
 its top edge, which (r-1, c+1)'s left edge wrote before.  MBs on one
 anti-diagonal d = 2r + c touch disjoint pixels and depend only on lower
 diagonals, so the 2*mbh + mbw - 2 diagonals taken in turn give the raster
-order's result.
+order's result.  The plain version takes them in turn; the kernel runs
+the horizontal edges of MB (r, c) once row r-1 has filtered MB c and the
+vertical edges of c + 1 (its vertical edges touch only row r), which
+gives the same result.
 """
 
 from __future__ import annotations
@@ -31,21 +36,26 @@ import torch
 from . import build
 
 #: kernel launches since import (or since a caller reset it to 0): one per
-#: wavefront diagonal
+#: call
 LAUNCHES = 0
 
-_fn = None
+_lib = None
 
 
 def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("deblock").x264t_deblock_apply
+    """(launch, scratch_ints) entries of the built library."""
+    global _lib
+    if _lib is None:
+        lib = build.load("deblock")
+        fn = lib.x264t_deblock_apply
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p] * 5)
+                       + [ctypes.c_void_p] * 6)
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        ints = lib.x264t_deblock_scratch_ints
+        ints.argtypes = [ctypes.c_int]
+        ints.restype = ctypes.c_int
+        _lib = (fn, ints)
+    return _lib
 
 
 def diagonals(mbh: int, mbw: int) -> int:
@@ -84,15 +94,22 @@ def deblock_apply(y, u, v, mapsV, mapsH, mapsVc, mapsHc):
         return deblock_apply_plain(y, u, v, mapsV, mapsH, mapsVc, mapsHc)
     if y.device.type != "cuda":
         raise ValueError(f"no kernel for device {y.device}")
+    for name, t in (("mapsV", mapsV), ("mapsVc", mapsVc)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             f"(the kernel reads it as int4/int2)")
     H, W = y.shape
+    launch, scratch_ints = _kernel()
     oy, ou, ov = y.clone(), u.clone(), v.clone()
+    progress = torch.zeros(scratch_ints(H), dtype=torch.int32,
+                           device=y.device)
     stream = torch.cuda.current_stream(y.device).cuda_stream
-    rc = _kernel()(oy.data_ptr(), ou.data_ptr(), ov.data_ptr(), H, W,
-                   mapsV.data_ptr(), mapsH.data_ptr(), mapsVc.data_ptr(),
-                   mapsHc.data_ptr(), stream)
+    rc = launch(oy.data_ptr(), ou.data_ptr(), ov.data_ptr(), H, W,
+                mapsV.data_ptr(), mapsH.data_ptr(), mapsVc.data_ptr(),
+                mapsHc.data_ptr(), progress.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"deblock_apply launch failed: CUDA error {rc}")
-    LAUNCHES += diagonals(H // 16, W // 16)
+    LAUNCHES += 1
     return oy, ou, ov
 
 

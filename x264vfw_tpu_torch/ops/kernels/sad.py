@@ -3,7 +3,8 @@
 Port of x264vfw_tpu/ops/pallas/sad.py :: sad_partition_minima (and its
 16x16 view sad16_argmin), and of sad_search_quad (and its 16x16 sum
 sad_search) as a second output mode of the same kernel.  On a CUDA tensor the wrapper launches the
-hand-written sm_90a kernel in csrc/sad.cu; on a CPU tensor it runs the
+hand-written sm_90a kernel in csrc/sad.cu (one CTA per MB, each thread a
+tile of 5 x 4 candidate offsets); on a CPU tensor it runs the
 plain PyTorch version below, which the CPU tests hold against the JAX
 package and chip_smoke.py holds the kernel against on the card.
 
@@ -30,6 +31,7 @@ from . import build
 LAUNCHES = 0
 
 MAX_R = 32          # shared-memory window limit of the kernel
+MAX_SCALE = 1 << 16  # keeps every cost below 2^23 (the kernel's 32-bit keys)
 NAMES = ("v16", "k16", "v168", "k168", "v816", "k816", "v8", "k8")
 
 _fns: dict = {}
@@ -78,8 +80,10 @@ def _check(src_y: torch.Tensor, ref_pad: torch.Tensor, R: int,
                          f"{tuple(ref_pad.shape)}")
     if not (src_y.is_contiguous() and ref_pad.is_contiguous()):
         raise ValueError("planes must be contiguous")
-    if len(scales) != 4 or any(int(s) != s or s < 0 for s in scales):
-        raise ValueError(f"scales must be 4 non-negative ints, got {scales}")
+    if len(scales) != 4 or any(int(s) != s or not 0 <= s <= MAX_SCALE
+                               for s in scales):
+        raise ValueError(f"scales must be 4 ints in [0, {MAX_SCALE}], got "
+                         f"{scales}")
 
 
 def sad_partition_minima(src_y: torch.Tensor, ref_pad: torch.Tensor, R: int,
