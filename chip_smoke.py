@@ -15,7 +15,9 @@ CompressSessions on a clip of textured content moving by a known shift:
     (1 IDR + 5 P), which runs the SAD and partition_refine_mc kernels once
     per P frame and deblock_apply once on every frame;
 
-and checks each stream, its motion vectors and its reconstruction.  Then
+and checks each stream, its motion vectors and its reconstruction, and
+holds the SAD (both modes) and partition_refine_mc kernels against their
+plain versions once more on the last P frame's own inputs.  Then
 it encodes a small clip with both command lines on the card and on the
 CPU and requires identical bytes.  Each kernel's launch count is set to 0
 just before a session and read just after it.  Prints one line per phase
@@ -54,8 +56,13 @@ KERNELS = ("sad", "memc", "deblock")
 SESSION_SIZE = (1920, 1080)            # the main paths' geometry
 SMALL_SIZE = (128, 96)                 # the card-vs-CPU clip
 SAD_SHAPES = ((1088, 1920, 16), (48, 320, 4), (64, 80, 8), (32, 272, 16),
-              (32, 48, 1), (64, 64, 32))
-MEMC_SHAPES = ((1088, 1920, 16), (48, 320, 4), (64, 80, 8), (32, 272, 16))
+              (32, 48, 1), (64, 64, 32), (16, 16, 4))
+MEMC_SHAPES = ((1088, 1920, 16), (48, 320, 4), (64, 80, 8), (32, 272, 16),
+               (16, 16, 4))
+# (H, W, R) of the extra cases: flat planes (every candidate's SAD ties)
+# and, for memc, a frame with every partition code 0-3 in turn
+SAD_FLAT = (48, 320, 4)
+MEMC_EXTRA = (64, 80, 8)
 DEBLOCK_MBS = ((68, 120), (3, 4), (5, 7), (2, 20), (1, 7), (9, 1))
 DEBLOCK_REPEATS = 50     # identical outputs in a row at DEBLOCK_MBS[0]
 SHIFT = (3, -2)          # (dx, dy) content motion per frame, full pels
@@ -94,6 +101,32 @@ def cuda_ms(fn, reps: int) -> float:
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def cuda_ms_b2b(fn, n: int = 20, reps: int = 5) -> float:
+    """Milliseconds per call of fn() over n calls back to back between one
+    pair of CUDA events, the median of reps runs.  The n calls are
+    captured once in a CUDA graph (after one warm-up call) and replayed,
+    so the host's own work per call is not in the window."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    del graph
     return float(np.median(times))
 
 
@@ -190,9 +223,9 @@ def per_sad4(mnemonics: list):
 
 
 def sad_sass_per_sad4():
-    """A diagnostic of the built SAD minima kernel (the template with
-    quad = false): per_sad4 of its SASS, read with the toolkit's
-    cuobjdump; None when the listing or that kernel is not found."""
+    """A diagnostic of the built SAD minima kernel (sad_minima_kernel):
+    per_sad4 of its SASS, read with the toolkit's cuobjdump; None when the
+    listing or that kernel is not found."""
     from x264vfw_tpu_torch.ops.kernels import build
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     try:
@@ -201,7 +234,8 @@ def sad_sass_per_sad4():
                               check=True).stdout
     except (OSError, subprocess.SubprocessError):
         return None
-    fns = [seq for f, seq in parse_sass(text).items() if "ILb0E" in f]
+    fns = [seq for f, seq in parse_sass(text).items()
+           if "sad_minima_kernel" in f]
     return per_sad4(fns[0]) if len(fns) == 1 else None
 
 
@@ -314,36 +348,50 @@ def main() -> int:
         t = time.time()
         err = {k: 0 for k in KERNELS}
         rng = np.random.default_rng(7)
-        for (H, W, R) in SAD_SHAPES:
+        for (H, W, R) in SAD_SHAPES + (SAD_FLAT,):
+            flat = (H, W, R) == SAD_FLAT
             src = torch.as_tensor(rng.integers(0, 256, (H, W), np.uint8),
                                   device=dev)
             refp = torch.as_tensor(
                 rng.integers(0, 256, (H + 2 * R, W + 2 * R), np.uint8),
                 device=dev)
+            if flat:
+                src.fill_(77)
+                refp.fill_(77)
             for scales in ((4, 2, 2, 1), (1, 0, 0, 0)):
                 d = max_diff(sadk.sad_partition_minima(src, refp, R, scales),
                              sadk.sad_partition_minima_plain(src, refp, R,
                                                              scales))
                 err["sad"] = max(err["sad"], d)
-                check(d == 0, f"sad at {(H, W, R)} {scales}: max |diff| {d}")
+                check(d == 0, f"sad at {(H, W, R)} {scales} (flat: {flat}): "
+                      f"max |diff| {d}")
             d = max_diff(sadk.sad_search_quad(src, refp, R),
                          sadk.sad_search_quad_plain(src, refp, R))
             err["sad"] = max(err["sad"], d)
-            check(d == 0, f"sad quad mode at {(H, W, R)}: max |diff| {d}")
-        for (H, W, R) in MEMC_SHAPES:
+            check(d == 0, f"sad quad mode at {(H, W, R)} (flat: {flat}): "
+                  f"max |diff| {d}")
+        memc_cases = ([("random", *shape) for shape in MEMC_SHAPES]
+                      + [("flat", *MEMC_EXTRA), ("parts", *MEMC_EXTRA)])
+        for kind, H, W, R in memc_cases:
             P = R + 8
             args = [torch.as_tensor(a, device=dev) for a in (
                 rng.integers(0, 256, (H, W), np.uint8),
                 rng.integers(0, 256, (H + 2 * P, W + 2 * P), np.uint8),
                 rng.integers(-R, R + 1, (H // 8, W // 8, 2), np.int32),
                 rng.integers(0, 4, (H // 16, W // 16), np.int32))]
+            if kind == "flat":
+                args[0].fill_(77)
+                args[1].fill_(77)
+            elif kind == "parts":
+                args[3] = (torch.arange(args[3].numel(), device=dev) % 4) \
+                    .to(torch.int32).reshape(args[3].shape)
             for sub_lv in (0, 1, 2):
                 d = max_diff(memck.partition_refine_mc(*args, R, sub_lv),
                              memck.partition_refine_mc_plain(*args, R,
                                                              sub_lv))
                 err["memc"] = max(err["memc"], d)
-                check(d == 0, f"memc at {(H, W, R)} sub_lv {sub_lv}: "
-                      f"max |diff| {d}")
+                check(d == 0, f"memc at {(H, W, R)} ({kind}) sub_lv "
+                      f"{sub_lv}: max |diff| {d}")
         bs_seen = set()
         for i, (mbh, mbw) in enumerate(DEBLOCK_MBS):
             planes, maps = deblock_case(mbh, mbw, seed=i, dev=dev)
@@ -467,9 +515,28 @@ def main() -> int:
         part, mv8i = partition_decide_from_minima(mins, R, enc.qp)
         out = dv.encode_p_frame_core(sy, su, sv, *prev_ref, enc.qp, enc.qpc,
                                      R, 2, partitions=True)
-        check(torch.equal(memck.partition_refine_mc(src8, refp_m, mv8i, part,
-                                                    R, 2)[0], out["mv8"]),
-              "memc on the session's inputs gives the session's mv8")
+        check(torch.equal(memck.partition_refine_mc_plain(
+            src8, refp_m, mv8i, part, R, 2)[0], out["mv8"]),
+            "plain memc on the session's inputs gives the session's mv8")
+        # each kernel against its plain version on these inputs, exact
+        session_err = {
+            "sad": max_diff(mins, sadk.sad_partition_minima_plain(
+                src8, refp_r, R)),
+            "quad": max_diff(sadk.sad_search_quad(src8, refp_r, R),
+                             sadk.sad_search_quad_plain(src8, refp_r, R))}
+        for sub_lv in (0, 1, 2):
+            session_err[f"memc_lv{sub_lv}"] = max_diff(
+                memck.partition_refine_mc(src8, refp_m, mv8i, part, R,
+                                          sub_lv),
+                memck.partition_refine_mc_plain(src8, refp_m, mv8i, part, R,
+                                                sub_lv))
+        check(not any(session_err.values()),
+              f"kernels vs plain on the session's inputs: {session_err}")
+        err["sad"] = max(err["sad"], session_err["sad"], session_err["quad"])
+        err["memc"] = max([err["memc"]] + [d for k, d in session_err.items()
+                                           if k.startswith("memc")])
+        part_counts = torch.bincount(part.flatten().long(),
+                                     minlength=4).tolist()
         maps = dv.loop_filter_maps(out, enc.qp, enc.mbh, enc.mbw, False,
                                    0, 0, enc.pps.chroma_qp_index_offset)
         recon = [out[k].contiguous()
@@ -486,20 +553,25 @@ def main() -> int:
             "deblock": (lambda: dbk.deblock_apply(*recon, *maps),
                         lambda: dbk.deblock_apply_plain(*recon, *maps),
                         deblock_bound_ms(H, W)),
+            "quad": (lambda: sadk.sad_search_quad(src8, refp_r, R),
+                     lambda: sadk.sad_search_quad_plain(src8, refp_r, R),
+                     sad_bound_ms(H, W, R, quad=True)),
         }
-        timing = {k: (cuda_ms(kern, 20), cuda_ms(plain, 3), *bd)
+        # (ms, plain ms, bound ms, bound by, ms back to back)
+        timing = {k: (cuda_ms(kern, 20), cuda_ms(plain, 3), *bd,
+                      cuda_ms_b2b(kern))
                   for k, (kern, plain, bd) in calls.items()}
-        quad = (cuda_ms(lambda: sadk.sad_search_quad(src8, refp_r, R), 20),
-                cuda_ms(lambda: sadk.sad_search_quad_plain(src8, refp_r, R),
-                        3), *sad_bound_ms(H, W, R, quad=True))
+        quad = timing.pop("quad")
         phase("session_1080p_parts", t, bytes=len(stream),
               i_ms=round(frame_ms[0], 1),
               p_ms=[round(x, 1) for x in frame_ms[1:]],
               psnr_y=[round(x, 2) for x in psnrs],
               mv8_match=[round(x, 4) for x in mv_ok], launches=launches,
+              session_max_abs_err=session_err, part_counts=part_counts,
               kernel_ms={k: round(v[0], 4) for k, v in timing.items()},
+              kernel_ms_b2b={k: round(v[4], 4) for k, v in timing.items()},
               plain_ms={k: round(v[1], 2) for k, v in timing.items()},
-              quad_ms=round(quad[0], 4))
+              quad_ms=round(quad[0], 4), quad_ms_b2b=round(quad[4], 4))
 
         # ---- 6. card vs CPU on a small clip, both command lines -----------
         t = time.time()
@@ -528,12 +600,13 @@ def main() -> int:
                  "deblock": "deblock_apply"}
         kernels = []
         for k in KERNELS:
-            ms, plain_ms, bound_ms, bound_by = timing[k]
+            ms, plain_ms, bound_ms, bound_by, ms_b2b = timing[k]
             rec = {
                 "name": names[k], "route": "cuda",
                 "source": "x264vfw_tpu_torch/" + meta[k][0],
                 "replaces": meta[k][1], "launches": launches[k],
-                "max_abs_err": err[k], "ms": ms, "plain_ms": plain_ms,
+                "max_abs_err": err[k], "ms": ms, "ms_b2b": ms_b2b,
+                "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None, "matched": err[k] == 0,
                 "build_s": build_s[k], "ptxas": ptxas_report(k),
@@ -544,7 +617,8 @@ def main() -> int:
                             "slice1_launches": launches1["sad"],
                             "quad_replaces":
                                 "x264vfw_tpu/ops/pallas/sad.py:426",
-                            "quad_ms": quad[0], "quad_plain_ms": quad[1],
+                            "quad_ms": quad[0], "quad_ms_b2b": quad[4],
+                            "quad_plain_ms": quad[1],
                             "quad_bound_ms": quad[2],
                             "quad_bound_by": quad[3]})
             if k == "deblock":

@@ -63,10 +63,15 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(cs, "SMALL_SIZE", (64, 48))
     monkeypatch.setattr(cs, "SAD_SHAPES", ((48, 64, 4), (32, 48, 6)))
     monkeypatch.setattr(cs, "MEMC_SHAPES", ((48, 64, 4), (32, 48, 6)))
+    monkeypatch.setattr(cs, "SAD_FLAT", (32, 48, 3))
+    monkeypatch.setattr(cs, "MEMC_EXTRA", (32, 64, 4))
     monkeypatch.setattr(cs, "DEBLOCK_MBS", ((3, 4), (2, 5)))
     monkeypatch.setattr(cs, "card_line", lambda: "cpu, 0 W")
     monkeypatch.setattr(cs, "sm_clock_hz", lambda: 1.98e9)
     monkeypatch.setattr(cs, "sad_sass_per_sad4", lambda: None)
+    # no CUDA graphs without a card: the calls back to back in a loop
+    monkeypatch.setattr(cs, "cuda_ms_b2b", lambda fn, n=20, reps=5:
+                        cs.cuda_ms(lambda: [fn() for _ in range(2)], 1) / 2)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda *a: type("P", (), {
                             "multi_processor_count": 132}))
@@ -105,8 +110,9 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
                                          "partition_refine_mc",
                                          "deblock_apply"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+            "ms", "ms_b2b", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in kern)
+    assert {"quad_ms", "quad_ms_b2b", "quad_bound_ms"} <= set(kern[0])
     assert [k["launches"] for k in kern] == [5, 5, 6]
     assert kern[2]["launches_per_frame"] == 1
     assert kern[0]["slice1_launches"] == 3

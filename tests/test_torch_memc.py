@@ -109,18 +109,21 @@ def test_lambda_table_matches_jax():
 
 
 def test_cuda_operand_table_matches_qpel_pairs():
-    """The kernel's Table 8-12 operand pairs (csrc/memc.cu kPairs[fx][fy])
-    are the port's _QPEL_PAIRS, entry for entry."""
+    """The kernel's Table 8-12 operand pairs (csrc/memc.cu qpel_pair, one
+    `case 0x<fx><fy>:` per fractional position, from which every candidate's
+    operand rows are derived at compile time) are the port's _QPEL_PAIRS,
+    entry for entry."""
     path = os.path.join(tmemc.build.CSRC_DIR, "memc.cu")
-    body = re.search(r"kPairs\[4\]\[4\]\[6\] = \{(.*?)\};", open(path).read(),
-                     re.S).group(1)
-    nums = [int(x) for x in re.findall(r"-?\d+", body)]
-    assert len(nums) == 96
-    for fx in range(4):
-        for fy in range(4):
-            row = nums[(fx * 4 + fy) * 6:(fx * 4 + fy + 1) * 6]
-            (p1, x1, y1), (p2, x2, y2) = tdev._QPEL_PAIRS[(fx, fy)]
-            assert row == [p1, x1, y1, p2, x2, y2], (fx, fy)
+    cases = re.findall(r"case 0x([0-3])([0-3]): return "
+                       r"\{\{(-?\d+), (-?\d+), (-?\d+)\}, "
+                       r"\{(-?\d+), (-?\d+), (-?\d+)\}\};",
+                       open(path).read())
+    assert len(cases) == 16
+    got = {(int(c[0]), int(c[1])): [int(x) for x in c[2:]] for c in cases}
+    assert set(got) == set(tdev._QPEL_PAIRS)
+    for (fx, fy), row in got.items():
+        (p1, x1, y1), (p2, x2, y2) = tdev._QPEL_PAIRS[(fx, fy)]
+        assert row == [p1, x1, y1, p2, x2, y2], (fx, fy)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "radius", "sub_lv",
@@ -153,13 +156,24 @@ def test_cpu_tensor_takes_plain_version():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,W,R", [(1088, 1920, 16), (48, 320, 4),
-                                   (64, 80, 8), (32, 272, 16)])
-def test_kernel_matches_plain_on_card(H, W, R):
+@pytest.mark.parametrize("kind,H,W,R", [
+    ("random", 1088, 1920, 16), ("random", 48, 320, 4), ("random", 64, 80, 8),
+    ("random", 32, 272, 16),
+    ("random", 16, 16, 4),          # one MB: one CTA, one warp
+    ("all_parts", 64, 80, 8),       # partition codes 0-3 in turn
+    ("all_parts", 48, 320, 4),      # mbw not a multiple of the CTA's strip
+    ("flat", 32, 272, 16),          # every candidate's SAD ties
+    ("flat", 64, 80, 8)])
+def test_kernel_matches_plain_on_card(kind, H, W, R):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    args = [torch.from_numpy(a).cuda()
-            for a in _case(H, W, R, "random", seed=R)]
+    src, refp, mv8i, part = _case(H, W, R, "random", seed=R)
+    if kind == "all_parts":
+        part = (np.arange(part.size) % 4).reshape(part.shape).astype(np.int32)
+    elif kind == "flat":
+        src[:] = 77
+        refp[:] = 77
+    args = [torch.from_numpy(a).cuda() for a in (src, refp, mv8i, part)]
     for sub_lv in (0, 1, 2):
         before = tmemc.LAUNCHES
         got = tmemc.partition_refine_mc(*args, R, sub_lv)

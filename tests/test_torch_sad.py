@@ -89,13 +89,20 @@ def test_cpu_tensor_takes_plain_version():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,W,R", [(1088, 1920, 16), (48, 320, 4),
-                                   (64, 80, 8), (32, 272, 16), (32, 48, 1),
-                                   (64, 64, 32)])
-def test_kernel_matches_plain_on_card(H, W, R):
+@pytest.mark.parametrize("H,W,R,flat", [
+    (1088, 1920, 16, False), (48, 320, 4, False), (64, 80, 8, False),
+    (32, 272, 16, False), (32, 48, 1, False), (64, 64, 32, False),
+    (16, 16, 4, False), (32, 560, 6, False),
+    # flat planes: every offset's SAD ties, so only the tie order and
+    # quad mode's strips and row segments decide the output
+    (48, 320, 4, True), (16, 16, 4, True), (32, 272, 5, True)])
+def test_kernel_matches_plain_on_card(H, W, R, flat):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     src, refp = _planes(H, W, R, seed=R)
+    if flat:
+        src[:] = 9
+        refp[:] = 9
     s = torch.from_numpy(src).cuda()
     r = torch.from_numpy(refp).cuda()
     for scales in ((4, 2, 2, 1), (1, 0, 0, 0)):
@@ -110,4 +117,3 @@ def test_kernel_matches_plain_on_card(H, W, R):
     want = tsad.sad_search_quad_plain(s, r, R)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-

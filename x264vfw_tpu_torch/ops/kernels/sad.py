@@ -2,11 +2,13 @@
 
 Port of x264vfw_tpu/ops/pallas/sad.py :: sad_partition_minima (and its
 16x16 view sad16_argmin), and of sad_search_quad (and its 16x16 sum
-sad_search) as a second output mode of the same kernel.  On a CUDA tensor the wrapper launches the
-hand-written sm_90a kernel in csrc/sad.cu (one CTA per MB, each thread a
-tile of 5 x 4 candidate offsets); on a CPU tensor it runs the
-plain PyTorch version below, which the CPU tests hold against the JAX
-package and chip_smoke.py holds the kernel against on the card.
+sad_search) as a second output mode.  On a CUDA tensor the wrapper
+launches the hand-written sm_90a kernels in csrc/sad.cu (minima: one CTA
+per MB, each thread a tile of 5 x 4 candidate offsets; quad mode: the same
+tiles over strips of 16 MBs, staged in shared memory and written as whole
+plane row segments); on a CPU tensor it runs the plain PyTorch version
+below, which the CPU tests hold against the JAX package and chip_smoke.py
+holds the kernel against on the card.
 
 Contract: src_y (H, W) uint8 and ref_pad (H + 2R, W + 2R) uint8 (the
 reference, edge-padded by R).  cost_X = 4*SAD_X + scales[X]*(|dy|+|dx|)
