@@ -6,19 +6,25 @@ Builds every kernel of the port's main paths from csrc/ with nvcc (one
 nvcc per source, in parallel) and holds each kernel against its plain
 PyTorch version on the card: the full-search SAD (minima and quad mode),
 partition_refine_mc and deblock_apply (and deblock_apply's repeated calls
-against each other).  Then drives two 1080p
-CompressSessions on a clip of textured content moving by a known shift:
+against each other).  Then drives four 1080p
+CompressSessions on clips of textured content moving by a known shift:
 
   * slice 1, --preset ultrafast --tune zerolatency --me esa --qp 26
     (1 IDR + 3 P), which runs the SAD kernel once per P frame;
   * slice 2, the same plus --deblock 0:0 --partitions p8x8 --subme 7
     (1 IDR + 5 P), which runs the SAD and partition_refine_mc kernels once
     per P frame and deblock_apply once on every frame;
+  * L3, x264's --preset ultrafast --crf 23 (26 frames: two windows of the
+    batched session and a flush), whose hierarchical search is plain
+    PyTorch and runs none of the kernels;
+  * L4, --preset ultrafast --tune zerolatency --qp 26 --subme 7
+    --deblock 0:0 (1 IDR + 3 P): the hierarchical search, 16x16
+    quarter-pel refinement and deblock_apply once on every frame;
 
 and checks each stream, its motion vectors and its reconstruction, and
 holds the SAD (both modes) and partition_refine_mc kernels against their
-plain versions once more on the last P frame's own inputs.  Then
-it encodes a small clip with both command lines on the card and on the
+plain versions once more on slice 2's last P frame's own inputs.  Then
+it encodes a small clip with each command line on the card and on the
 CPU and requires identical bytes.  Each kernel's launch count is set to 0
 just before a session and read just after it.  Prints one line per phase
 with its elapsed seconds; the last three lines are the card's name and
@@ -40,6 +46,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 # published H100 SXM peaks (NVIDIA H100 datasheet): HBM bytes/s and
 # dense int8 operations/s, used for the bound of a kernel on 8-bit pixels
@@ -51,6 +58,10 @@ INT32_LANES_PER_SM = 64
 
 CMDLINE = "--preset ultrafast --tune zerolatency --me esa --qp 26"
 CMDLINE_PARTS = CMDLINE + " --deblock 0:0 --partitions p8x8 --subme 7"
+CMDLINE_L3 = "--preset ultrafast --crf 23"
+CMDLINE_L4 = ("--preset ultrafast --tune zerolatency --qp 26 --subme 7 "
+              "--deblock 0:0")
+L3_FRAMES = 26           # two windows of 12 and a flush of 2
 DEV = "cuda"
 KERNELS = ("sad", "memc", "deblock")
 SESSION_SIZE = (1920, 1080)            # the main paths' geometry
@@ -66,6 +77,7 @@ MEMC_EXTRA = (64, 80, 8)
 DEBLOCK_MBS = ((68, 120), (3, 4), (5, 7), (2, 20), (1, 7), (9, 1))
 DEBLOCK_REPEATS = 50     # identical outputs in a row at DEBLOCK_MBS[0]
 SHIFT = (3, -2)          # (dx, dy) content motion per frame, full pels
+HIER_SHIFT = (9, -6)     # beyond the hierarchical search's +-2 rescue
 T0 = time.time()
 
 
@@ -148,12 +160,13 @@ def textured(h: int, w: int, seed: int) -> np.ndarray:
     return (s // 9).astype(np.uint8)
 
 
-def moving_clip(w: int, h: int, frames: int, seed: int):
-    """I420 frames of a texture moving by SHIFT per frame (no wrap inside
-    the frame: the canvas has a margin wider than the total motion)."""
-    m = 64
+def moving_clip(w: int, h: int, frames: int, seed: int, shift=None):
+    """I420 frames of a texture moving by shift (default SHIFT) per frame
+    (no wrap inside the frame: the canvas has a margin wider than the
+    total motion)."""
+    dx, dy = shift or SHIFT
+    m = max(64, frames * max(abs(dx), abs(dy)) + 8)
     base = textured(h + 2 * m, w + 2 * m, seed)
-    dx, dy = SHIFT
     out = []
     for f in range(frames):
         y = np.ascontiguousarray(
@@ -161,6 +174,32 @@ def moving_clip(w: int, h: int, frames: int, seed: int):
         u = np.ascontiguousarray(y[::2, ::2])
         out.append((y, u, 255 - u))
     return out
+
+
+class CudaOps(TorchDispatchMode):
+    """Counts the ATen operations that touch a CUDA tensor, views left
+    out: about one kernel launch each (torch.profiler, in
+    tools/torch_profile_frames.py, counts the launches themselves)."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not func.is_view and any(
+                isinstance(t, torch.Tensor) and t.is_cuda
+                for t in (*args, *(kwargs or {}).values(),
+                          *(out if isinstance(out, (tuple, list))
+                            else (out,)))):
+            self.n += 1
+        return out
+
+
+def interior_match(mv: torch.Tensor, mbh: int, mbw: int, want) -> float:
+    """Share of the MBs off the frame's edge whose vector is `want`."""
+    inner = mv.reshape(mbh, mbw, 2)[1:-1, 1:-1].reshape(-1, 2).cpu().numpy()
+    return float((inner == np.asarray(want)).all(-1).mean())
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -573,23 +612,126 @@ def main() -> int:
               plain_ms={k: round(v[1], 2) for k, v in timing.items()},
               quad_ms=round(quad[0], 4), quad_ms_b2b=round(quad[4], 4))
 
-        # ---- 6. card vs CPU on a small clip, both command lines -----------
+        # ---- 6. L3, x264's ultrafast line at 1080p: batched, hierarchical --
         t = time.time()
-        small = moving_clip(*SMALL_SIZE, 4, seed=2)
+        clip3 = moving_clip(w, h, L3_FRAMES, seed=3, shift=HIER_SHIFT)
+        want_mv = [-4 * HIER_SHIFT[0], -4 * HIER_SHIFT[1]]
+        sess = CompressSession(extra_cmdline=CMDLINE_L3, device=DEV)
+        sess.begin(w, h)
+        enc = sess.encoder
+        check(sess._pipe is not None and enc.cfg.me_backend == "auto:hier"
+              and enc.cfg.subpel == 0, "L3 runs batched with the "
+              "hierarchical search and no sub-pel step")
+        # the planes each frame keeps as its reference, in decode order,
+        # and each P run's vectors
+        kept, run_mvs = [], []
+        plain_deblock, plain_pgop = dfin._maybe_deblock, dfin.encode_pgop_slots
+
+        def keep_ref(*a, **k):
+            res = plain_deblock(*a, **k)
+            kept.append(res[0])
+            return res
+
+        def keep_mv(*a, **k):
+            res = plain_pgop(*a, **k)
+            run_mvs.append(res[-1])
+            return res
+
+        dfin._maybe_deblock, dfin.encode_pgop_slots = keep_ref, keep_mv
+        try:
+            for m in mods.values():
+                m.LAUNCHES = 0
+            t1 = time.time()
+            outs = [sess.compress(frame) for frame in clip3]
+            tail = sess.end()["tail"]
+            torch.cuda.synchronize()
+            wall = time.time() - t1
+            launches3 = {k: m.LAUNCHES for k, m in mods.items()}
+        finally:
+            dfin._maybe_deblock, dfin.encode_pgop_slots = plain_deblock, \
+                plain_pgop
+        delay = sess.frames_info().delay
+        check(delay == 23, f"L3 frames_info().delay {delay}, want 23")
+        check([i for i, o in enumerate(outs) if o] == [23] and tail,
+              "L3 compress() returns b'' until the second window fills, "
+              "then the first window; end()['tail'] the rest")
+        nals = [u.nal_unit_type for u in split_annexb(b"".join(outs) + tail)]
+        check(nals.count(7) == 1 and nals.count(8) == 1 and
+              nals.count(5) == 1 and nals.count(1) == L3_FRAMES - 1,
+              f"SPS, PPS, 1 IDR + {L3_FRAMES - 1} P, got NAL types {nals}")
+        check(launches3 == {k: 0 for k in KERNELS},
+              f"L3 runs none of the kernels: {launches3}")
+        mvs = torch.cat(run_mvs)
+        mv_ok = [interior_match(mv, enc.mbh, enc.mbw, want_mv) for mv in mvs]
+        psnrs = [psnr(r[:h, :w].cpu().numpy(), f[0])
+                 for r, f in zip(kept, clip3)]
+        check(len(mv_ok) == L3_FRAMES - 1 and min(mv_ok) >= 0.9,
+              f"L3 interior integer MVs equal to the shift: {mv_ok}")
+        check(len(psnrs) == L3_FRAMES and min(psnrs) > 30.0,
+              f"L3 luma PSNR per frame {psnrs}")
+        phase("session_1080p_ultrafast_crf23", t,
+              bytes=len(b"".join(outs) + tail), wall_s=round(wall, 3),
+              fps=round(L3_FRAMES / wall, 3), delay=delay,
+              psnr_y_min=round(min(psnrs), 2),
+              mv_match_min=round(min(mv_ok), 4), launches=launches3)
+        del kept, run_mvs, mvs
+
+        # ---- 7. L4: hierarchical search, quarter pel, loop filter ----------
+        t = time.time()
+        nfr4 = 4
+        sess = CompressSession(extra_cmdline=CMDLINE_L4, device=DEV)
+        sess.begin(w, h)
+        enc = sess.encoder
+        check((enc.cfg.me_backend, enc.cfg.subpel, enc.cfg.deblock,
+               enc.cfg.partitions) == ("auto:hier", 2, True, False)
+              and sess._pipe is None, "L4 options reach the encoder")
+        for m in mods.values():
+            m.LAUNCHES = 0
+        frame_ms, mv_ok, psnrs, ops = [], [], [], CudaOps()
+        for f, frame in enumerate(clip3[:nfr4]):
+            t1 = time.time()
+            if f == nfr4 - 1:
+                with ops:
+                    sess.compress(frame)
+            else:
+                sess.compress(frame)
+            torch.cuda.synchronize()
+            frame_ms.append((time.time() - t1) * 1e3)
+            psnrs.append(psnr(enc.last_recon[0], frame[0]))
+            if f:
+                mv_ok.append(interior_match(enc.last_mv, enc.mbh, enc.mbw,
+                                            want_mv))
+        launches4 = {k: m.LAUNCHES for k, m in mods.items()}
+        sess.end()
+        check(launches4 == {"sad": 0, "memc": 0, "deblock": nfr4},
+              f"L4 launches {launches4}: want {nfr4} deblock, one per frame")
+        check(min(mv_ok) >= 0.9,
+              f"L4 interior quarter-pel MVs equal to 4 x the shift: {mv_ok}")
+        check(min(psnrs) > 30.0, f"L4 luma PSNR per frame {psnrs}")
+        phase("session_1080p_hier_qpel_deblock", t,
+              i_ms=round(frame_ms[0], 1),
+              p_ms=[round(x, 1) for x in frame_ms[1:]],
+              p_frame_cuda_ops=ops.n, psnr_y=[round(x, 2) for x in psnrs],
+              mv_match=[round(x, 4) for x in mv_ok], launches=launches4)
+
+        # ---- 8. card vs CPU on a small clip, every command line ------------
+        t = time.time()
+        small = moving_clip(*SMALL_SIZE, L3_FRAMES, seed=2, shift=HIER_SHIFT)
         sizes = {}
-        for cmd in (CMDLINE, CMDLINE_PARTS):
-            aus = {}
+        for cmd, n in ((CMDLINE, 4), (CMDLINE_PARTS, 4),
+                         (CMDLINE_L3, L3_FRAMES), (CMDLINE_L4, 4)):
+            got = {}
             for d in (DEV, "cpu"):
                 s = CompressSession(extra_cmdline=cmd, device=d)
                 s.begin(*SMALL_SIZE)
-                aus[d] = b"".join(s.compress(fr) for fr in small)
-                s.end()
-            check(aus[DEV] == aus["cpu"],
-                  f"card and CPU streams differ at {SMALL_SIZE} for {cmd!r}")
-            sizes[cmd] = len(aus["cpu"])
+                outs = [s.compress(fr) for fr in small[:n]]
+                got[d] = (outs, s.end()["tail"], s.frames_info().delay)
+            check(got[DEV] == got["cpu"], f"card and CPU outputs differ at "
+                  f"{SMALL_SIZE} for {cmd!r}")
+            sizes[cmd] = len(b"".join(got["cpu"][0]) + got["cpu"][1])
         phase("card_vs_cpu", t, bytes=list(sizes.values()), identical=True)
 
-        # ---- 7. the record -------------------------------------------------
+        # ---- 9. the record -------------------------------------------------
         meta = {
             "sad": ("csrc/sad.cu", "x264vfw_tpu/ops/pallas/sad.py:239"),
             "memc": ("csrc/memc.cu", "x264vfw_tpu/ops/pallas/memc.py:253"),
@@ -609,6 +751,7 @@ def main() -> int:
                 "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None, "matched": err[k] == 0,
+                "l3_launches": launches3[k], "l4_launches": launches4[k],
                 "build_s": build_s[k], "ptxas": ptxas_report(k),
                 "shape": [H, W, R], "card": card}
             if k == "sad":

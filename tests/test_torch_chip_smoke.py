@@ -3,7 +3,10 @@
 The script runs on a CUDA card; here its phases run at a small size with
 the CUDA calls stubbed and the plain versions of the SAD, memc and
 deblock kernels counted as the kernels, so a later change that breaks a
-phase or a check shows without a card.
+phase or a check shows without a card: the two slice sessions, the
+batched --preset ultrafast --crf 23 session (26 frames, two windows and a
+flush), the hierarchical quarter-pel session with the loop filter, and
+card against CPU for all four command lines.
 Also: without a card the script exits non-zero and prints no result.
 """
 
@@ -69,6 +72,10 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(cs, "card_line", lambda: "cpu, 0 W")
     monkeypatch.setattr(cs, "sm_clock_hz", lambda: 1.98e9)
     monkeypatch.setattr(cs, "sad_sass_per_sad4", lambda: None)
+    # one timed run per call instead of the card's 20: the rehearsal
+    # checks the script's logic, not the CPU's times
+    cuda_ms = cs.cuda_ms
+    monkeypatch.setattr(cs, "cuda_ms", lambda fn, reps: cuda_ms(fn, 1))
     # no CUDA graphs without a card: the calls back to back in a loop
     monkeypatch.setattr(cs, "cuda_ms_b2b", lambda fn, n=20, reps=5:
                         cs.cuda_ms(lambda: [fn() for _ in range(2)], 1) / 2)
@@ -114,6 +121,13 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     assert all(keys <= set(k) for k in kern)
     assert {"quad_ms", "quad_ms_b2b", "quad_bound_ms"} <= set(kern[0])
     assert [k["launches"] for k in kern] == [5, 5, 6]
+    # L3 runs none of the kernels, L4 the loop filter once per frame
+    assert [k["l3_launches"] for k in kern] == [0, 0, 0]
+    assert [k["l4_launches"] for k in kern] == [0, 0, 4]
+    phases = {ln.split("] ")[1].split(":")[0] for ln in lines
+              if ln.startswith("[")}
+    assert {"session_1080p_ultrafast_crf23", "session_1080p_hier_qpel_deblock",
+            "card_vs_cpu"} <= phases
     assert kern[2]["launches_per_frame"] == 1
     assert kern[0]["slice1_launches"] == 3
     H, W, R = kern[0]["shape"]     # one VABSDIFF4 per 4 byte differences

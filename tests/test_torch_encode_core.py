@@ -116,10 +116,20 @@ def test_p_frame_motion_compensation(frames):
 
 @pytest.mark.parametrize("what", ["hier", "subpel"])
 def test_out_of_slice_search_raises(frames, what):
+    """The searches this slice refused, the hierarchical one and the 16x16
+    quarter-pel refinement, now run: on the frames' whole-pel motion
+    (dx, dy) = (-3, 2) both give the exhaustive search's vectors and
+    prediction away from the frame's edge (tests/test_torch_hier.py holds
+    them to the JAX package)."""
     planes = [torch.from_numpy(p) for p in frames[0] + frames[1]]
     kw = ({"me_backend": "auto:hier"} if what == "hier" else {"subpel": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdev._motion_search_and_mc(*planes, R, **kw)
+    mv_q, pred_y, _, _ = tdev._motion_search_and_mc(*planes, R, **kw)
+    want_mv, want_y, _, _ = tdev._motion_search_and_mc(*planes, R)
+    inner = (slice(1, -1), slice(1, -1))
+    assert (mv_q[inner] == torch.tensor([-12, 8])).all()
+    np.testing.assert_array_equal(mv_q[inner].numpy(), want_mv[inner].numpy())
+    np.testing.assert_array_equal(pred_y[16:-16, 16:-16].numpy(),
+                                  want_y[16:-16, 16:-16].numpy())
 
 
 def test_satd_lambda_all_qps():

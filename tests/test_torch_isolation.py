@@ -5,9 +5,8 @@
 * The entry points default to the CUDA device and raise when there is
   none, instead of carrying on on the CPU.
 * Options outside the ported slices raise NotImplementedError naming the
-  ROADMAP instead of encoding something else (--subme > 0 is ported only
-  with P partitions), and so does a session the JAX package would batch
-  (BatchPipeline is not ported).
+  ROADMAP instead of encoding something else; a session the JAX package
+  would batch runs through the port's BatchPipeline.
 """
 
 import ast
@@ -69,8 +68,7 @@ def test_encoder_and_state_without_cuda_raise(no_cuda):
         state_from_numpy(z, z[:8, :8], z[:8, :8], frame_idx=1)
 
 
-@pytest.mark.parametrize("extra", ["", "--bframes 2", "--me hex",
-                                   "--subme 2", "--ref 2", "--cabac",
+@pytest.mark.parametrize("extra", ["", "--bframes 2", "--ref 2", "--cabac",
                                    "--partitions i8x8",
                                    "--partitions p8x8,i4x4",
                                    "--aq-mode 1", "--weightp 1"])
@@ -90,19 +88,20 @@ def test_other_containers_raise():
         select_muxer("out.mp4")
 
 
-@pytest.mark.parametrize("extra,refused", [("", True),
+@pytest.mark.parametrize("extra,batched", [("", True),
                                            (" --tune zerolatency", False),
-                                           (" --threads 1", False)])
-def test_batched_session_refused(extra, refused):
-    """A session the JAX package would send to BatchPipeline (no
-    zero-latency tune, --threads other than 1) is refused at begin();
-    zero-latency and --threads 1 sessions run per frame there too."""
+                                           (" --threads 1", False),
+                                           (" --me hex --subme 2", True)])
+def test_batched_session_runs(extra, batched):
+    """A session the JAX package sends to BatchPipeline (no zero-latency
+    tune, --threads other than 1) now runs batched; zero-latency and
+    --threads 1 sessions run per frame there too.  --me hex and --subme
+    without partitions, refused before the hierarchical search and the
+    16x16 sub-pel branch were ported, begin as well."""
     from x264vfw_tpu_torch.api import CompressSession
     s = CompressSession(extra_cmdline="--preset ultrafast --me esa --crf 23"
                         + extra, device="cpu")
-    if refused:
-        with pytest.raises(NotImplementedError, match="batched session"):
-            s.begin(64, 48)
-    else:
-        s.begin(64, 48)
-        s.end()
+    s.begin(64, 48)
+    assert (s._pipe is not None) == batched
+    assert s.frames_info().delay == (23 if batched else 0)
+    s.end()

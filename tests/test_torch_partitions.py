@@ -9,8 +9,12 @@ quad-mode SAD's plain version against _quad_sads(..., "xla"), and the
 slice as a whole: the CompressSession bytes for
 --preset ultrafast --tune zerolatency --me esa --qp 26 --deblock 0:0
 --partitions p8x8 --subme 7 and one partitioned P frame encoded from the
-same reference through convert.state_from_numpy.  Inputs come from numpy
-seeds.  Tolerance: none.
+same reference through convert.state_from_numpy; and the same session
+without --me esa, whose ':hier' suffix the partition search ignores, so
+that it gives slice 2's bytes.  The JAX package's outputs for these are
+committed in tests/jax_refs/slice2.npz
+(tools/make_torch_jax_refs.py; its hash guard is in
+test_torch_session.py).  Inputs come from numpy seeds.  Tolerance: none.
 """
 
 import dataclasses
@@ -22,11 +26,10 @@ import pytest
 import torch
 
 import oracle
+import torch_jax_refs
 from test_torch_session import moving_clip
-from x264vfw_tpu.api import CompressSession as JaxSession
 from x264vfw_tpu.encode import inter_partition as jip
 from x264vfw_tpu.encode.ref_encoder import EncoderConfig as JaxConfig
-from x264vfw_tpu.encode.tpu_encoder import TpuEncoder
 from x264vfw_tpu_torch.api import CompressSession
 from x264vfw_tpu_torch.bitstream.nal import split_annexb
 from x264vfw_tpu_torch.convert import config_from_jax_fields, state_from_numpy
@@ -37,6 +40,7 @@ from x264vfw_tpu_torch.ops.kernels import sad as tsad
 
 CMDLINE = ("--preset ultrafast --tune zerolatency --me esa --qp 26 "
            "--deblock 0:0 --partitions p8x8 --subme 7")
+CMDLINE_HIER = CMDLINE.replace(" --me esa", "")
 
 
 def _frames(H, W, R, seed):
@@ -173,18 +177,23 @@ def test_stream_decodes_to_reconstruction(extra):
         np.testing.assert_array_equal(d[:64 * 48].reshape(48, 64), r)
 
 
+def converted_state_case():
+    """(JAX EncoderConfig, reference planes, current frame) of the
+    partitioned P frame encoded from a loaded reference picture."""
+    w, h = 64, 48
+    jcfg = JaxConfig(width=w, height=h, qp=26, keyint=250, search_range=16,
+                     subpel=2, partitions=True, deblock=True)
+    src, ref, srcc, refc = _frames(h, w, 16, seed=11)
+    cur = [src.astype(np.uint8), *(c.astype(np.uint8) for c in srcc)]
+    return jcfg, [ref, *refc], cur
+
+
 @pytest.fixture(scope="module")
-def jax_stream():
-    """The JAX package's access units at 64x48, 1 IDR + 2 P (computed
-    once)."""
-    s = JaxSession(extra_cmdline=CMDLINE)
-    s.begin(64, 48)
-    aus = [s.compress(f) for f in moving_clip(64, 48, 3, seed=64)]
-    s.end()
-    return aus
+def jax_refs():
+    return torch_jax_refs.load("slice2")
 
 
-def test_session_bytes_equal_jax(jax_stream):
+def test_session_bytes_equal_jax(jax_refs):
     s = CompressSession(extra_cmdline=CMDLINE, device="cpu")
     s.begin(64, 48)
     enc = s.encoder
@@ -194,33 +203,37 @@ def test_session_bytes_equal_jax(jax_stream):
     assert s.end()["frames"] == 3
     types = [u.nal_unit_type for u in split_annexb(b"".join(aus))]
     assert types.count(5) == 1 and types.count(1) == 2, types
-    for i, (got, want) in enumerate(zip(aus, jax_stream)):
-        assert got == want, f"AU {i} differs"
+    want = torch_jax_refs.aus(jax_refs, "session")
+    assert len(want) == 3
+    for i, (got, w_) in enumerate(zip(aus, want)):
+        assert got == w_, f"AU {i} differs"
     assert enc.last_mv8.shape == (6, 8, 2)
 
 
-def test_partitioned_p_frame_from_converted_state():
+def test_session_without_me_esa_gives_slice2_bytes(jax_refs):
+    """--me left at ultrafast's dia: the P16x16 search would be the
+    hierarchical one, but partitions search exhaustively, in the JAX
+    package (inter_partition.py:152-153) and in the port alike."""
+    s = CompressSession(extra_cmdline=CMDLINE_HIER, device="cpu")
+    s.begin(64, 48)
+    assert s.encoder.cfg.me_backend == "auto:hier"
+    aus = [s.compress(f) for f in moving_clip(64, 48, 3, seed=64)]
+    s.end()
+    want = torch_jax_refs.aus(jax_refs, "session_hier")
+    assert want == torch_jax_refs.aus(jax_refs, "session") and len(want) == 3
+    for i, (got, w_) in enumerate(zip(aus, want)):
+        assert got == w_, f"AU {i} differs"
+
+
+def test_partitioned_p_frame_from_converted_state(jax_refs):
     """Same reference picture -> same P-frame bytes and same deblocked
-    reconstruction.  The JAX config is the session's, so the JAX P program
-    compiled for test_session_bytes_equal_jax is reused."""
-    w, h = 64, 48
-    jcfg = JaxConfig(width=w, height=h, qp=26, keyint=250, search_range=16,
-                     subpel=2, partitions=True, deblock=True)
-    src, ref, srcc, refc = _frames(h, w, 16, seed=11)
-    ref_planes = [ref, *refc]
-    cur = [src.astype(np.uint8), *(c.astype(np.uint8) for c in srcc)]
-
-    jenc = TpuEncoder(jcfg)
-    jenc.ref = tuple(jnp.asarray(p) for p in ref_planes)
-    jenc.frame_idx = jenc.frame_num = jenc.display_idx = 1
-    jenc.idr_id = 1
-    want = jenc.encode_frame(*cur, qp=26, force_idr=False)
-
+    reconstruction."""
+    jcfg, ref_planes, cur = converted_state_case()
     cfg = config_from_jax_fields(dataclasses.asdict(jcfg))
     enc = TorchEncoder(cfg, device="cpu")
     enc.load_state(state_from_numpy(*ref_planes, frame_idx=1, idr_id=1,
                                     device="cpu"))
     got = enc.encode_frame(*cur, qp=26, force_idr=False)
-    assert got == want
-    for a, b in zip(enc.ref, jenc.ref):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert got == jax_refs["p_au"].tobytes()
+    for a, k in zip(enc.ref, "yuv"):
+        np.testing.assert_array_equal(a.numpy(), jax_refs[f"p_ref_{k}"])

@@ -1,0 +1,57 @@
+"""Committed outputs of the JAX package for the port's slice-1 and slice-2
+session tests.
+
+tools/make_torch_jax_refs.py runs the JAX package on the tests' own inputs
+and writes its access units (and, for the converted-state tests, the
+reference planes) into tests/jax_refs/<name>.npz, together with the
+sha256 of the JAX package's sources (source_hash()).  The tests compare
+the port against these arrays exactly instead of compiling the JAX
+programs anew in every run; test_torch_session.py::
+test_jax_references_are_current fails when the sources have changed
+since the files were written.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REF_DIR = os.path.join(ROOT, "tests", "jax_refs")
+NAMES = ("slice1", "slice2")
+SCRIPT = "tools/make_torch_jax_refs.py"
+
+
+def source_hash() -> str:
+    """sha256 over the JAX package's .py files: each relative path, a NUL,
+    its bytes, a NUL, in sorted path order."""
+    pkg = os.path.join(ROOT, "x264vfw_tpu")
+    paths = sorted(os.path.relpath(os.path.join(d, n), ROOT)
+                   for d, _, names in os.walk(pkg) for n in names
+                   if n.endswith(".py"))
+    h = hashlib.sha256()
+    for rel in paths:
+        with open(os.path.join(ROOT, rel), "rb") as f:
+            h.update(rel.replace(os.sep, "/").encode() + b"\0" + f.read()
+                     + b"\0")
+    return h.hexdigest()
+
+
+def path(name: str) -> str:
+    return os.path.join(REF_DIR, f"{name}.npz")
+
+
+def load(name: str) -> dict:
+    """{key: array} of tests/jax_refs/<name>.npz."""
+    with np.load(path(name)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def aus(refs: dict, prefix: str) -> list:
+    """The access units stored as <prefix>_0, <prefix>_1, ... as bytes."""
+    out = []
+    while f"{prefix}_{len(out)}" in refs:
+        out.append(refs[f"{prefix}_{len(out)}"].tobytes())
+    return out

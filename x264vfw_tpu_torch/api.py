@@ -1,6 +1,6 @@
 """Public session API (PyTorch port) — the x264vfw codec lifecycle.
 
-Port of x264vfw_tpu/api.py :: CompressSession, per-frame path:
+Port of x264vfw_tpu/api.py :: CompressSession, per-frame and batched paths:
   compress_query/get_size  -> CompressSession.query / worst_case_size
   compress_begin           -> CompressSession.begin
   compress (per frame)     -> CompressSession.compress
@@ -11,14 +11,16 @@ The session owns config resolution (presets/flags), the encoder, the
 muxer, pts/dts bookkeeping and error stickiness.  It runs on the CUDA
 device unless built with device="cpu".
 
-The port encodes x264's live-streaming configuration
-(--preset ultrafast --tune zerolatency, with --me esa/tesa): I16x16 +
-P16x16 CAVLC, one reference, integer-pel motion; and on top of it
---deblock (the in-loop filter), --partitions p8x8 (16x16/16x8/8x16/8x8 P
-partitions) and, with P partitions, --subme 1-11 (half/quarter-pel
-refinement).  Options outside it raise NotImplementedError naming the
-ROADMAP queue; the session never encodes something other than what was
-asked.
+The port encodes x264's --preset ultrafast: I16x16 + P16x16 CAVLC, one
+reference, the hierarchical integer search of --me dia/hex/umh or the
+exhaustive one of --me esa/tesa; and on top of it --subme 1-11
+(half/quarter-pel refinement), --deblock (the in-loop filter) and
+--partitions p8x8 (16x16/16x8/8x16/8x8 P partitions).  A zero-latency
+session (--tune zerolatency) or one with --threads 1 encodes frame by
+frame; any other goes through the batched pipeline (encode/pipeline.py,
+windows of 12 frames), as in the JAX package.  Options outside it raise
+NotImplementedError naming the ROADMAP queue; the session never encodes
+something other than what was asked.
 """
 
 from __future__ import annotations
@@ -79,27 +81,12 @@ def _out_of_slice(p: EncoderParams) -> list[str]:
         ("--bframes", p.bframes > 0), ("--cabac", p.cabac),
         ("--partitions i4x4/i8x8", intra_parts),
         ("--8x8dct", p.dct8x8), ("--ref > 1", p.ref > 1),
-        ("--subme > 0 without --partitions p8x8",
-         p.subme > 0 and not _p_partitions(p)),
-        (f"--me {p.me}", p.me not in ("esa", "tesa")),
         ("--aq-mode", p.aq_mode > 0), ("--trellis", p.trellis > 0),
         ("--weightp", p.weightp > 0), ("--mbtree", bool(p.mbtree)),
         ("--scenecut", p.scenecut > 0),
         ("--threads > 1 (multi-device)", p.threads > 1),
         ("--psnr/--ssim", bool(p.psnr or p.ssim)),
-        ("the batched session (no --tune zerolatency and --threads other "
-         "than 1; ROADMAP.md queue A2, BatchPipeline)",
-         _batched(p)),
     ) if on]
-
-
-def _batched(p: EncoderParams) -> bool:
-    """True where x264vfw_tpu/api.py sends the session to BatchPipeline
-    (its --psnr/--ssim and --threads > 1 branches are refused above):
-    not zero-latency and --threads other than 1."""
-    zero_latency = (p.bframes == 0 and not p.mbtree
-                    and p.sync_lookahead == 0)
-    return not zero_latency and p.threads != 1
 
 
 class CompressSession:
@@ -116,6 +103,7 @@ class CompressSession:
         for w in self.warnings:
             self.log.warning(w)
         self.encoder: TorchEncoder | None = None
+        self._pipe = None          # BatchPipeline when the session batches
         self.muxer: Muxer | None = None
         self.error = False         # sticky b_encoder_error
         self.frame_count = 0
@@ -167,8 +155,21 @@ class CompressSession:
             colorprim=_COLORPRIM.get(p.colorprim, 2),
             transfer=_TRANSFER.get(p.transfer, 2),
             colmatrix=_COLMATRIX.get(p.colmatrix, 2),
+            # --me dia/hex/umh -> the hierarchical search, esa/tesa ->
+            # the exhaustive one
+            me_backend="auto" + (":hier" if p.me in ("dia", "hex", "umh")
+                                 else ""),
         ), device=self.device)
         self._encode_idx = 0
+        # the batched pipeline unless the session is zero-latency (no B
+        # frames, no MB-tree, --tune zerolatency's sync_lookahead 0) or
+        # --threads 1, which keep the per-frame 1:1 compress->output
+        # contract (--threads > 1 and --psnr/--ssim are refused above)
+        zero_latency = (p.bframes == 0 and not p.mbtree
+                        and p.sync_lookahead == 0)
+        if p.threads != 1 and not zero_latency:
+            from .encode.pipeline import BatchPipeline
+            self._pipe = BatchPipeline(self.encoder, self.rc, window=12)
         if output is not None:
             self.muxer = select_muxer(
                 output if isinstance(output, str) else "", container)
@@ -185,8 +186,10 @@ class CompressSession:
 
     # ---------------------------------------------------------- compress
     def compress(self, frame, fmt: str = "i420") -> bytes:
-        """frame: (y, u, v) uint8 planes.  Returns the Annex-B access unit
-        emitted for this input (one per frame: no B-frame delay)."""
+        """frame: (y, u, v) uint8 planes.  Returns the Annex-B access units
+        emitted for this input: one per frame on the per-frame path; on
+        the batched path b"" until the second window fills, then a whole
+        window's (frames_info().delay)."""
         if self.error:
             raise RuntimeError("encoder in error state")
         if self.encoder is None:
@@ -195,6 +198,14 @@ class CompressSession:
             raise NotImplementedError(
                 f"input format {fmt} needs colourspace conversion, which "
                 "is not ported yet (ROADMAP.md, queue A)")
+        if self._pipe is not None:
+            try:
+                outs = self._pipe.push(*frame)
+            except Exception:
+                self.error = True
+                raise
+            self.frame_count += 1
+            return self._emit(outs)
         qp_i = self.rc.qp_for_type("I")
         qp_p = self.rc.qp_for_type("P")
         try:
@@ -204,20 +215,24 @@ class CompressSession:
             self.error = True
             raise
         self.frame_count += 1
-        return self._emit(outs, {"I": qp_i, "P": qp_p})
+        return self._emit([(au, pts, key, "I" if key else "P",
+                            qp_i if key else qp_p)
+                           for au, pts, key in outs], rc_done=False)
 
-    def _emit(self, outs, qps: dict) -> bytes:
+    def _emit(self, outs, rc_done: bool = True) -> bytes:
+        """outs: (au, pts, is_idr, ftype, qp) in decode order.  rc_done:
+        the batched pipeline has fed rate control already; else each AU's
+        size goes to it here, with the QP the encoder was given."""
         result = b""
-        for au, pts, key in outs:
-            ftype = "I" if key else "P"
+        for au, pts, key, ftype, qp in outs:
             if self.params.aud:
                 # access-unit delimiter, first NAL of the AU (§7.4.2.4);
                 # primary_pic_type 0=I, 1=I/P
                 ppt = {"I": 0, "P": 1}[ftype]
                 au = (START_CODE_LONG + bytes([0x09, (ppt << 5) | 0x10])
                       + au)
-            # the QP the encoder was given for this AU
-            self.rc.update(ftype, qps[ftype], len(au) * 8)
+            if not rc_done:
+                self.rc.update(ftype, qp, len(au) * 8)
             if pts > self._largest:
                 self._second = self._largest
                 self._largest = pts
@@ -234,7 +249,11 @@ class CompressSession:
 
     # --------------------------------------------------------------- end
     def end(self) -> dict:
-        """Close; returns summary stats."""
+        """Flush the batched pipeline's delayed frames and close; returns
+        summary stats, the flushed AUs under 'tail'."""
+        tail = b""
+        if self._pipe is not None and not self.error:
+            tail = self._emit(self._pipe.flush())
         if self.muxer is not None:
             self.muxer.close_file(self._largest, self._second)
             self.muxer = None
@@ -245,7 +264,7 @@ class CompressSession:
         stats = {
             "frames": self.frame_count,
             "kbps": self._bits_total / 1000.0 / dur if dur else 0.0,
-            "tail": b"",   # nothing is delayed without B frames
+            "tail": tail,
         }
         if self.frame_count:
             self.log.info(f"encoded {self.frame_count} frames, "
@@ -253,7 +272,10 @@ class CompressSession:
         return stats
 
     def frames_info(self) -> FramesInfo:
-        return FramesInfo(delay=0)
+        # double-buffered windows: a frame can wait one full window in the
+        # queue plus one window in flight before its AU is emitted
+        return FramesInfo(delay=0 if self._pipe is None
+                          else 2 * self._pipe.window - 1)
 
 
 def _strip_parameter_sets(au: bytes) -> tuple[bytes, bool]:

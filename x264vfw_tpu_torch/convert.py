@@ -36,11 +36,13 @@ class EncoderState:
     idr_id: int           # idr_pic_id of the next IDR
     poc: int = 0          # pic_order_cnt_lsb of the next frame
     last_idr: int = 0     # display index of the last IDR
+    poc_base: int = 0     # display index the POC counts from (the batched
+    #                       session sets it at each IDR)
 
 
 def state_from_numpy(ref_y: np.ndarray, ref_u: np.ndarray, ref_v: np.ndarray,
                      frame_idx: int, poc: int = 0, frame_num: int | None = None,
-                     idr_id: int = 1, last_idr: int = 0,
+                     idr_id: int = 1, last_idr: int = 0, poc_base: int = 0,
                      device=None) -> EncoderState:
     """Decoded picture buffer + frame counters from numpy arrays.
 
@@ -58,4 +60,4 @@ def state_from_numpy(ref_y: np.ndarray, ref_u: np.ndarray, ref_v: np.ndarray,
     return EncoderState(
         ref=ref, frame_idx=frame_idx,
         frame_num=frame_idx - last_idr if frame_num is None else frame_num,
-        idr_id=idr_id, poc=poc, last_idr=last_idr)
+        idr_id=idr_id, poc=poc, last_idr=last_idr, poc_base=poc_base)

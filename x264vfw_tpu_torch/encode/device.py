@@ -2,17 +2,21 @@
 integer-pel motion search + motion compensation, and the I / P cores.
 
 Port of x264vfw_tpu/encode/device.py for the slices this package carries:
-I16x16 with chroma intra; P with one reference found by exhaustive
-search, either P16x16 at integer-pel precision (`subpel=0`) or the 8x8-grid
-partitions with half/quarter-pel refinement (encode/inter_partition.py);
-and the in-loop deblock of the reconstruction.  Every function is
-batched over macroblocks; sample arithmetic is int32, as in the JAX code.
-The outputs are the same syntax tensors (levels in zigzag + block coding
-order, CBPs, MVs, modes) and recon planes, bit for bit.
+I16x16 with chroma intra; P with one reference, either P16x16 (found by
+the hierarchical or the exhaustive search, then optionally refined to
+half or quarter pel) or the 8x8-grid partitions with half/quarter-pel
+refinement (encode/inter_partition.py); and the in-loop deblock of the
+reconstruction.  Every function is batched over macroblocks; sample
+arithmetic is int32 (int16 where the JAX code keeps pixel data in int16,
+with the same values).  The outputs are the same syntax tensors (levels
+in zigzag + block coding order, CBPs, MVs, modes) and recon planes, bit
+for bit.
 
 Where the JAX code aligns the reference with masked static shifts (a TPU
-cannot gather), the port gathers each MB's prediction at its own motion
-vector: the prediction planes are identical.
+cannot gather), the port gathers: each MB's prediction at its own motion
+vector (the prediction planes are identical), and the hierarchical
+refine's and the sub-pel decision's arrays column by column at the
+vector of the MB each column lies in, which is what the masks compute.
 """
 
 from __future__ import annotations
@@ -157,36 +161,231 @@ def _qpel_operands(tx: int, ty: int):
     return (p1, a1x + ix, a1y + iy), (p2, a2x + ix, a2y + iy)
 
 
+_ME_BACKENDS = ("auto", "xla", "pallas", "pallas_interpret")
+_RF = 3                 # the hierarchical refine's radius, full pels
+
+
+def _split_me_method(me_backend: str) -> tuple[str, bool]:
+    """me_backend as the JAX package spells it -> (backend, hier).  An
+    ':hier' suffix selects the hierarchical search (x264's dia/hex/umh);
+    without it the search is exhaustive (esa/tesa).  Every backend name
+    means the same in the port, so the JAX package's _resolve_me_backend
+    has no counterpart: the exhaustive search is sad16_argmin, the CUDA
+    kernel on CUDA tensors and its plain version on CPU tensors."""
+    backend, hier = ((me_backend[:-5], True) if me_backend.endswith(":hier")
+                     else (me_backend, False))
+    if backend not in _ME_BACKENDS:
+        raise ValueError(f"unknown motion-search backend {me_backend!r}")
+    return backend, hier
+
+
+def _argmin_first(cost: torch.Tensor):
+    """(N, ...) integer costs -> (index of the first minimum over dim 0,
+    the minimum), from one int64 key cost * N + index: the tie-break of
+    jnp.argmin, whatever order the device reduces in."""
+    N = cost.shape[0]
+    idx = torch.arange(N, device=cost.device).reshape(
+        N, *([1] * (cost.dim() - 1)))
+    key = (cost.to(torch.int64) * N + idx).amin(dim=0)
+    return key % N, key // N
+
+
+# the most elements of shifted windows one _window_sads step forms (the
+# rest of the offsets wait for the next step): 128 MB of int16
+_WINDOW_ELEMS = 1 << 26
+
+
+def _window_sads(src: torch.Tensor, plane: torch.Tensor, ky: int, kx: int,
+                 bh: int, bw: int) -> torch.Tensor:
+    """SAD of every bh x bw block of src (B, R, C) against plane
+    (B, R + ky - 1, C + kx - 1) at every offset (oy, ox) in
+    [0, ky) x [0, kx): (ky * kx, B, R // bh, C // bw) int32, offsets in
+    row-major (oy, ox) order.  The shifted windows are strided views of
+    plane, taken a few offset rows at a time."""
+    plane = plane.contiguous()
+    B, R, C = src.shape
+    sb, sr, sc = plane.stride()
+    step = max(1, _WINDOW_ELEMS // (kx * src.numel()))
+    out = []
+    for oy in range(0, ky, step):
+        n = min(step, ky - oy)
+        win = plane.as_strided((n, kx, B, R, C), (sr, sc, sb, sr, sc),
+                               plane.storage_offset() + oy * sr)
+        d = (src - win).abs_()
+        out.append(d.reshape(n * kx, B, R // bh, bh, C // bw, bw)
+                   .sum(dim=(3, 5), dtype=torch.int32))
+    return torch.cat(out)
+
+
+def _hier_search(src16: torch.Tensor, ref16: torch.Tensor, rng: int):
+    """Hierarchical integer-pel search (x264vfw_tpu/encode/device.py:
+    253-343), int16 planes in, (dxb, dyb) (mbh, mbw) int64 out.
+
+    1. coarse: a full search over +-rng_c on 2x2-summed planes (the
+       reference pooled, then edge-padded), cost 4*cSAD + 2*(|ody|+|odx|);
+       the vector, doubled, is clipped to +-(rng - 3);
+    2. refine: the +-3 offsets around it, on a band per MB row in which
+       every column is aligned by the coarse vector of the MB that column
+       lies in (the 3 columns beyond an MB's edge carry its neighbour's
+       alignment, the frame's outer columns MB 0's and the last MB's, as
+       in the JAX package's masked shifts); cost 4*SAD + |dx| + |dy| of
+       the total vector;
+    3. rescue: the +-2 offsets around zero, cost 4*SAD + |dx| + |dy|,
+       which win ties against the refine.
+    Candidates are row-major (dy, dx) and ties go to the first."""
+    H, W = src16.shape
+    mbh, mbw = H // 16, W // 16
+    dev = src16.device
+
+    def pool(p):
+        return p.reshape(H // 2, 2, W // 2, 2).sum(dim=(1, 3))
+
+    rc = (rng + 1) // 2
+    Kc = 2 * rc + 1
+    oc = (torch.arange(Kc, device=dev) - rc).abs()
+    csads = _window_sads(pool(src16)[None], _edge_pad(pool(ref16), rc)[None],
+                         Kc, Kc, 8, 8)[:, 0]
+    ccost = 2 * (oc[:, None] + oc[None, :]).reshape(-1, 1, 1)
+    bestc, _ = _argmin_first(csads * 4 + ccost)
+    lim = rng - _RF
+    dyb0 = (2 * (bestc // Kc - rc)).clamp(-lim, lim)
+    dxb0 = (2 * (bestc % Kc - rc)).clamp(-lim, lim)
+
+    cols = torch.arange(-_RF, W + _RF, device=dev)
+    mbx = cols.clamp(0, W - 1) // 16
+    rows = torch.arange(-_RF, 16 + _RF, device=dev)
+    ys = (16 * torch.arange(mbh, device=dev)[:, None, None]
+          + rows[None, :, None] + dyb0[:, mbx][:, None, :])
+    xs = cols[None, None, :] + dxb0[:, mbx][:, None, :]
+    band = ref16[ys.clamp(0, H - 1), xs.clamp(0, W - 1)]
+    kr = 2 * _RF + 1
+    rsads = _window_sads(src16.reshape(mbh, 16, W), band, kr, kr, 16,
+                         16)[:, :, 0]
+    r = torch.arange(-_RF, _RF + 1, device=dev)
+    rdy, rdx = r.repeat_interleave(kr), r.repeat(kr)
+    bestr, rval = _argmin_first(
+        rsads * 4 + (dxb0[None] + rdx[:, None, None]).abs()
+        + (dyb0[None] + rdy[:, None, None]).abs())
+
+    zsads = _window_sads(src16[None], _edge_pad(ref16, 2)[None], 5, 5, 16,
+                         16)[:, 0]
+    z = torch.arange(-2, 3, device=dev)
+    zdy, zdx = z.repeat_interleave(5), z.repeat(5)
+    bestz, zval = _argmin_first(
+        zsads * 4 + (zdx.abs() + zdy.abs())[:, None, None])
+    use_z = zval <= rval
+    return (torch.where(use_z, zdx[bestz], dxb0 + rdx[bestr]),
+            torch.where(use_z, zdy[bestz], dyb0 + rdy[bestr]))
+
+
+def _subpel_planes(ref_y: torch.Tensor, pad: int) -> torch.Tensor:
+    """(4, H + 2 pad, W + 2 pad) int16: the reference edge-padded by pad
+    and its b, h, j half-pel planes (_halfpel_planes)."""
+    ref_pad = _edge_pad(ref_y, pad).to(torch.int32)
+    return torch.stack([ref_pad, *_halfpel_planes(ref_pad)]).to(torch.int16)
+
+
+def _subpel_refine(src16: torch.Tensor, planes: torch.Tensor, pad: int,
+                   dxb: torch.Tensor, dyb: torch.Tensor, sub_lv: int):
+    """The 16x16 half/quarter-pel decision and its luma prediction
+    (x264vfw_tpu/encode/device.py:372-515).
+
+    planes: (4, H + 2 pad, W + 2 pad) int16, the padded reference and its
+    b, h, j half-pel planes.  The candidates are the even quarter offsets
+    of [-2, 2]^2 (sub_lv 1) or all of them (sub_lv 2) around the integer
+    vector; each is the rounded mean of two {int, b, h, j} samples
+    (_qpel_operands).  The decision reads them from an array aligned per
+    column at the integer vector of the MB the column lies in, edge-padded
+    by one column (so within a pixel of an MB's left edge the neighbour's
+    alignment shows, as in the JAX package), over every other row: cost
+    4*SAD + |tx| + |ty|, ties to the first in row-major (ty, tx) order.
+    The prediction at the winner is exact per MB.
+    Returns (tx, ty) (mbh, mbw) and pred_y (H, W) int32."""
+    _, Hp, Wp = planes.shape
+    H, W = Hp - 2 * pad, Wp - 2 * pad
+    mbh, mbw = H // 16, W // 16
+    dev = planes.device
+    ar = torch.arange
+
+    # every plane aligned at the integer vector: rows -1..16 of each MB
+    # row, columns -1..W (edge-padded by one)
+    cc = ar(-1, W + 1, device=dev).clamp(0, W - 1)
+    ox, oy = dxb[:, cc // 16], dyb[:, cc // 16]
+    ys = (pad - 1 + 16 * ar(mbh, device=dev)[:, None, None]
+          + ar(18, device=dev)[None, :, None] + oy[:, None, :])
+    amap = planes[:, ys, (pad + cc)[None, None, :] + ox[:, None, :]]
+
+    tr = range(-2, 3) if sub_lv >= 2 else (-2, 0, 2)
+    deltas = [(tx, ty) for ty in tr for tx in tr]
+    ops = torch.as_tensor([[*_qpel_operands(tx, ty)[0],
+                            *_qpel_operands(tx, ty)[1]]
+                           for tx, ty in deltas], device=dev)   # (N, 6)
+
+    def read(p, ox_, oy_):
+        """(N, mbh, 8, W): the candidates' operand samples on even rows."""
+        return amap[p[:, None, None, None],
+                    ar(mbh, device=dev)[None, :, None, None],
+                    (1 + oy_)[:, None, None, None]
+                    + 2 * ar(8, device=dev)[None, None, :, None],
+                    (1 + ox_)[:, None, None, None]
+                    + ar(W, device=dev)[None, None, None, :]]
+
+    cand = (read(ops[:, 0], ops[:, 1], ops[:, 2])
+            + read(ops[:, 3], ops[:, 4], ops[:, 5]) + 1) >> 1
+    src_r = src16.reshape(mbh, 16, W)[:, ::2]
+    sads = (src_r - cand).abs_().reshape(len(deltas), mbh, 8, mbw, 16) \
+        .sum(dim=(2, 4), dtype=torch.int32)
+    d = torch.as_tensor(deltas, device=dev)
+    best, _ = _argmin_first(
+        sads * 4 + (d[:, 0].abs() + d[:, 1].abs())[:, None, None])
+
+    # exact MC: both operands at the winner, per pixel of the MB
+    op = _per_pixel(ops[best], 16)                      # (H, W, 6)
+    y = pad + ar(H, device=dev)[:, None] + _per_pixel(dyb, 16)
+    x = pad + ar(W, device=dev)[None, :] + _per_pixel(dxb, 16)
+    pred = ((planes[op[..., 0], y + op[..., 2], x + op[..., 1]].to(torch.int32)
+             + planes[op[..., 3], y + op[..., 5], x + op[..., 4]] + 1) >> 1)
+    return d[best, 0], d[best, 1], pred
+
+
 def _motion_search_and_mc(src_y, src_u, src_v, ref_y, ref_u, ref_v,
                           rng: int, subpel: int = 0,
                           me_backend: str = "auto"):
-    """Exhaustive integer-pel SAD search + luma/chroma MC.
+    """Integer-pel search, then the optional 16x16 half/quarter-pel
+    refinement, then luma/chroma MC.
 
-    The search is sad16_argmin (the CUDA kernel on the card, its plain
-    version on the CPU): cost = 4*SAD16 + (|dy|+|dx|), ties to the
-    smallest offset id.  Returns (mv_q (mbh, mbw, 2) quarter-pel [x, y],
-    pred_y (H, W), pred_u, pred_v) int32."""
-    if me_backend.endswith(":hier"):
-        raise NotImplementedError(
-            "hierarchical motion search (--me dia/hex/umh) is not ported "
-            "yet (ROADMAP.md, queue A)")
-    if subpel:
-        raise NotImplementedError(
-            "half/quarter-pel refinement (--subme > 0) is not ported yet "
-            "(ROADMAP.md, queue A)")
+    The integer search is hierarchical (_hier_search) when me_backend
+    ends in ':hier' and rng >= 6, else exhaustive: sad16_argmin (the CUDA
+    kernel on the card, its plain version on the CPU), cost 4*SAD16 +
+    (|dy|+|dx|), ties to the smallest offset id.  subpel: 0 = integer,
+    1 = half, 2 = quarter pel (_subpel_refine).  Returns (mv_q (mbh, mbw,
+    2) quarter-pel [x, y], pred_y (H, W), pred_u, pred_v) int32."""
+    _, hier = _split_me_method(me_backend)
     H, W = src_y.shape
-    K = 2 * rng + 1
-    ref_pad = _edge_pad(ref_y, rng).to(torch.uint8)
-    best = sad16_argmin(src_y.to(torch.uint8).contiguous(),
-                        ref_pad.contiguous(), rng)
-    dyb = torch.div(best, K, rounding_mode="floor") - rng
-    dxb = best % K - rng
+    sub_lv = int(subpel)
+    if hier and rng >= 6:
+        dxb, dyb = _hier_search(src_y.to(torch.int16), ref_y.to(torch.int16),
+                                rng)
+    else:
+        K = 2 * rng + 1
+        best = sad16_argmin(src_y.to(torch.uint8).contiguous(),
+                            _edge_pad(ref_y, rng).to(torch.uint8).contiguous(),
+                            rng)
+        dyb = torch.div(best, K, rounding_mode="floor") - rng
+        dxb = best % K - rng
     mv_q = torch.stack([dxb, dyb], dim=-1).to(torch.int32) * 4
 
-    # luma MC: the reference sample at (y + dy, x + dx), edge-clamped
-    ys = torch.arange(H, device=src_y.device)[:, None] + _per_pixel(dyb, 16)
-    xs = torch.arange(W, device=src_y.device)[None, :] + _per_pixel(dxb, 16)
-    pred_y = ref_y[ys.clamp(0, H - 1), xs.clamp(0, W - 1)].to(torch.int32)
+    if sub_lv:
+        pad = rng + 8
+        tx, ty, pred_y = _subpel_refine(src_y.to(torch.int16),
+                                        _subpel_planes(ref_y, pad), pad,
+                                        dxb, dyb, sub_lv)
+        mv_q = mv_q + torch.stack([tx, ty], dim=-1).to(torch.int32)
+    else:
+        # the reference sample at (y + dy, x + dx), edge-clamped
+        ys = torch.arange(H, device=src_y.device)[:, None] + _per_pixel(dyb, 16)
+        xs = torch.arange(W, device=src_y.device)[None, :] + _per_pixel(dxb, 16)
+        pred_y = ref_y[ys.clamp(0, H - 1), xs.clamp(0, W - 1)].to(torch.int32)
 
     return (mv_q, pred_y, *_chroma_mc(mv_q, ref_u, ref_v, 8))
 

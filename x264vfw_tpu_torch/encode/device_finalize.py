@@ -2,7 +2,8 @@
 
 Port of the I and one-reference P parts (P16x16 and the 8x8-grid
 partitions) of x264vfw_tpu/encode/device_finalize.py, with the in-loop
-deblock of the reference planes.
+deblock of the reference planes, and of its batched P run
+(encode_pgop_slots, pack_batch) without B frames or MB-tree.
 Everything between the per-MB compute and the NAL wrapper runs on the
 device: MV prediction, skip-run derivation, nC context maps, CAVLC slot
 generation (bitstream/cavlc_dev) and bit packing (device_pack).  The host
@@ -352,6 +353,45 @@ def encode_p_slots(src_yuv, ref_y, ref_u, ref_v, qp: int, qpc: int,
     v, l = _finalize_p_core(out, hdr_vals, hdr_lens, H // 16, W // 16)
     return (v, l, *_maybe_deblock(out, qp, H // 16, W // 16, False, deblock,
                                   dbA, dbB, qpc_offset), out)
+
+
+def encode_pgop_slots(frames_yuv, ref_y, ref_u, ref_v, qps, qpcs,
+                      hdr_vals, hdr_lens, rng: int, subpel: int = 0,
+                      me_backend: str = "auto", deblock: bool = False,
+                      dbA: int = 0, dbB: int = 0, qpc_offset: int = 0,
+                      partitions: bool = False):
+    """Batched P-frame phase 1: the G frames of a run, each encoded
+    against the (deblocked when `deblock`) recon of the one before, with
+    one reference and no per-MB QP offsets.  The JAX package's lax.scan
+    is a Python loop over encode_p_slots here.  It packs nothing, so no
+    bit count is read back (pack_batch reads them when the run is
+    materialized) and on CUDA the run stays queued while the host goes
+    on.
+
+    frames_yuv: (G, H*W*3/2) uint8; qps/qpcs: G Python ints (one QP per
+    frame, as rate control chose); hdr_vals/hdr_lens: (G, MAX_HDR).
+    Returns (slot_vals (G, rows, L), slot_lens (G, rows, L), recon_y,
+    recon_u, recon_v of the last frame, mv (G, n, 2) quarter-pel)."""
+    ref = (ref_y, ref_u, ref_v)
+    vs, ls, mvs = [], [], []
+    for g in range(frames_yuv.shape[0]):
+        v, l, *ref, out = encode_p_slots(
+            frames_yuv[g], *ref, qps[g], qpcs[g], hdr_vals[g], hdr_lens[g],
+            rng, subpel, me_backend, deblock, dbA, dbB, qpc_offset,
+            partitions)
+        vs.append(v)
+        ls.append(l)
+        mvs.append(out["mv"])
+    return (torch.stack(vs), torch.stack(ls), *ref, torch.stack(mvs))
+
+
+def pack_batch(vs, ls):
+    """Pack a (G, rows, L) slot batch: a list of G packed byte tensors and
+    a list of G bit counts.  pack_slots sizes each output exactly (it
+    reads each bit count to the host), so the JAX package's capacity
+    bucket and overflow re-pack have no counterpart."""
+    packed = [pack_slots(v, l) for v, l in zip(vs, ls)]
+    return [p[0] for p in packed], [p[1] for p in packed]
 
 
 def finalize_i(out, hdr_vals, hdr_lens, mbh: int, mbw: int):

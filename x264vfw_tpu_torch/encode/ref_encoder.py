@@ -59,5 +59,5 @@ class EncoderConfig:
     # ("auto", "xla", "pallas", "pallas_interpret": in the port the SAD
     # kernel runs on CUDA tensors and its plain version on CPU tensors,
     # whatever the name) with an optional ":hier" suffix selecting the
-    # hierarchical search (dia/hex/umh), which is not ported yet
+    # hierarchical search (dia/hex/umh)
     me_backend: str = "auto"

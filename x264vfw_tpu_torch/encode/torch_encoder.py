@@ -6,7 +6,11 @@ push_frame -> encode_frame -> one uint8 upload, the fused I or P phase 1
 (encode/device_finalize.py, with the in-loop deblock when the config
 asks for it), a pack sized from the slot lengths, one pull of the payload
 bytes, and the NAL wrap on the host.  Reference frames (deblocked when
-the slice filters) stay on the device between frames.
+the slice filters) stay on the device between frames.  The batched
+session (encode/pipeline.py) drives the same object: it reads and writes
+display_idx, _last_idr_d, poc_base, poc, frame_num and frame_idx, writes
+slice headers with _slice_header_codes and uploads a run of frames with
+pack_batch_rows.
 
 Header conventions (SPS profile/level/DPB size, PPS, slice headers,
 version SEI) are the JAX package's, byte for byte.
@@ -34,9 +38,6 @@ def _unsupported(cfg: EncoderConfig) -> list[str]:
     for name, on in (("bframes", cfg.bframes > 0), ("cabac", cfg.cabac),
                      ("i4x4", cfg.i4x4), ("dct8x8", cfg.dct8x8),
                      ("ref > 1", cfg.num_ref_frames > 1),
-                     ("subme > 0 without P partitions",
-                      cfg.subpel != 0 and not cfg.partitions),
-                     ("hierarchical ME", cfg.me_backend.endswith(":hier")),
                      ("aq", cfg.aq_strength > 0), ("trellis", cfg.trellis),
                      ("weightp", cfg.weightp > 0),
                      ("scenecut", cfg.scenecut > 0)):
@@ -91,6 +92,7 @@ class TorchEncoder:
         self.idr_id = 0
         self.poc = 0                  # pic_order_cnt_lsb of current frame
         self.display_idx = 0
+        self.poc_base = 0             # display index of the last IDR
         self._last_idr_d: int | None = None
         self.ref: tuple | None = None  # device (y, u, v) int32 recon
         self.last_mv = None            # device (n, 2) mv field of last P
@@ -120,6 +122,7 @@ class TorchEncoder:
         self.frame_num = state.frame_num
         self.idr_id = state.idr_id
         self.poc = state.poc
+        self.poc_base = state.poc_base
         self._last_idr_d = state.last_idr
 
     def headers(self) -> bytes:
@@ -163,11 +166,8 @@ class TorchEncoder:
             self.qpc = int(tables.chroma_qp(self.qp,
                                             self.pps.chroma_qp_index_offset))
         # one uint8 upload, one fused device phase, one pull
-        src = np.concatenate([
-            np.ascontiguousarray(_pad(y, H, W), dtype=np.uint8).ravel(),
-            np.ascontiguousarray(_pad(u, H // 2, W // 2), dtype=np.uint8).ravel(),
-            np.ascontiguousarray(_pad(v, H // 2, W // 2), dtype=np.uint8).ravel()])
-        src_d = torch.from_numpy(src).to(self.device)
+        src_d = torch.from_numpy(self.pack_batch_rows([(y, u, v)])[0]) \
+            .to(self.device)
         if is_idr:
             self.frame_num = 0
             nal_type = NAL_SLICE_IDR
@@ -202,6 +202,18 @@ class TorchEncoder:
         if is_idr:
             self.idr_id = (self.idr_id + 1) % 65536
         return bs
+
+    def pack_batch_rows(self, batch: list) -> np.ndarray:
+        """(y, u, v) frames -> the (G, H*W*3/2) uint8 rows the device
+        phases ingest (each plane edge-padded to the MB-multiple size)."""
+        H, W = self.mbh * 16, self.mbw * 16
+        return np.stack([np.concatenate([
+            np.ascontiguousarray(_pad(y, H, W), dtype=np.uint8).ravel(),
+            np.ascontiguousarray(_pad(u, H // 2, W // 2),
+                                 dtype=np.uint8).ravel(),
+            np.ascontiguousarray(_pad(v, H // 2, W // 2),
+                                 dtype=np.uint8).ravel()])
+            for (y, u, v) in batch])
 
     # ------------------------------------------------------------------
     def _header_slots(self, slice_type: int, nal_type: int):
