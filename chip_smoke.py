@@ -20,12 +20,21 @@ CompressSessions on clips of textured content moving by a known shift:
   * L4, --preset ultrafast --tune zerolatency --qp 26 --subme 7
     --deblock 0:0 (1 IDR + 3 P): the hierarchical search, 16x16
     quarter-pel refinement and deblock_apply once on every frame;
+  * veryfast, x264's --preset veryfast --tune zerolatency --crf 23
+    (1 IDR + 4 P, the last a luma fade): CABAC (a host transcode), I4x4
+    on the slope-2 I wavefront, the 8x8 transform, AQ, weighted P
+    prediction, P partitions at half pel and the loop filter: the SAD and
+    partition_refine_mc kernels once per P frame, deblock_apply once on
+    every frame;
 
 and checks each stream, its motion vectors and its reconstruction, and
 holds the SAD (both modes) and partition_refine_mc kernels against their
-plain versions once more on slice 2's last P frame's own inputs.  Then
+plain versions once more on slice 2's last P frame's own inputs, and all
+of them (deblock_apply on maps with 8x8-transformed MBs and per-MB QPs)
+on the veryfast phase's last P frame's, where they are also timed.  Then
 it encodes a small clip with each command line on the card and on the
-CPU and requires identical bytes.  Each kernel's launch count is set to 0
+CPU and requires identical bytes (for veryfast and superfast with
+--min-keyint 2, on a clip with a fade and a scene cut).  Each kernel's launch count is set to 0
 just before a session and read just after it.  Prints one line per phase
 with its elapsed seconds; the last three lines are the card's name and
 power limit, the kernels' JSON record and {"ok": true, "device": ...}.
@@ -61,7 +70,11 @@ CMDLINE_PARTS = CMDLINE + " --deblock 0:0 --partitions p8x8 --subme 7"
 CMDLINE_L3 = "--preset ultrafast --crf 23"
 CMDLINE_L4 = ("--preset ultrafast --tune zerolatency --qp 26 --subme 7 "
               "--deblock 0:0")
+CMDLINE_VF = "--preset veryfast --tune zerolatency --crf 23"
+CMDLINE_SF = "--preset superfast --tune zerolatency --crf 23"
 L3_FRAMES = 26           # two windows of 12 and a flush of 2
+VF_FRAMES = 5            # 1 IDR + 4 P, the last a fade
+FADE = 0.8               # the fade frame's luma gain
 DEV = "cuda"
 KERNELS = ("sad", "memc", "deblock")
 SESSION_SIZE = (1920, 1080)            # the main paths' geometry
@@ -160,19 +173,45 @@ def textured(h: int, w: int, seed: int) -> np.ndarray:
     return (s // 9).astype(np.uint8)
 
 
-def moving_clip(w: int, h: int, frames: int, seed: int, shift=None):
+def structured(h: int, w: int, seed: int) -> np.ndarray:
+    """textured() at 40% contrast over a smooth large-scale pattern, uint8:
+    the 8x-pooled frames the weight analysis reads keep their variance,
+    so a fade is measured as one."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    big = 128 + 80 * np.sin(xx / 41.0 + 1.3) * np.cos(yy / 33.0 + 0.4)
+    fine = textured(h, w, seed).astype(np.float64) - 128
+    return np.clip(0.4 * fine + big, 0, 255).astype(np.uint8)
+
+
+def moving_clip(w: int, h: int, frames: int, seed: int, shift=None,
+                texture=textured):
     """I420 frames of a texture moving by shift (default SHIFT) per frame
     (no wrap inside the frame: the canvas has a margin wider than the
     total motion)."""
     dx, dy = shift or SHIFT
     m = max(64, frames * max(abs(dx), abs(dy)) + 8)
-    base = textured(h + 2 * m, w + 2 * m, seed)
+    base = texture(h + 2 * m, w + 2 * m, seed)
     out = []
     for f in range(frames):
         y = np.ascontiguousarray(
             np.roll(base, (f * dy, f * dx), (0, 1))[m:m + h, m:m + w])
         u = np.ascontiguousarray(y[::2, ::2])
         out.append((y, u, 255 - u))
+    return out
+
+
+def live_clip(w: int, h: int, frames: int, seed: int, cut_at: int,
+              fade_from: int):
+    """moving_clip with another moving texture from cut_at on (a scene
+    cut) and a luma fade of 4% of full scale per frame from fade_from
+    on."""
+    one = moving_clip(w, h, frames, seed, texture=structured)
+    two = moving_clip(w, h, frames, seed + 1, shift=(-SHIFT[1], SHIFT[0]))
+    out = []
+    for i, (y, u, v) in enumerate(one[:cut_at] + two[cut_at:]):
+        if i >= fade_from:
+            y = (y * (1.0 - 0.04 * (i - fade_from + 1))).astype(np.uint8)
+        out.append((y, u, v))
     return out
 
 
@@ -354,6 +393,7 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     from x264vfw_tpu_torch.api import CompressSession
+    from x264vfw_tpu_torch.bitstream import native_parse
     from x264vfw_tpu_torch.bitstream.nal import split_annexb
     from x264vfw_tpu_torch.encode import device as dv
     from x264vfw_tpu_torch.encode import device_finalize as dfin
@@ -380,8 +420,18 @@ def main() -> int:
         build_s = build.build(KERNELS)
         for name in KERNELS:
             build.load(name)
+        # the host CABAC passes (gcc), and the CAVLC parser's tables
+        host_s = {}
+        for name in build.HOST_SOURCES:
+            t1 = time.time()
+            build.load_host(name)
+            host_s[name] = round(time.time() - t1, 2)
+        native_parse._lib()
         phase("build", t, seconds={k: round(v, 2) for k, v in build_s.items()},
-              libs=[os.path.basename(build.library_path(k)) for k in KERNELS])
+              host_seconds=host_s,
+              libs=[os.path.basename(build.library_path(k)) for k in KERNELS]
+              + [os.path.basename(build.host_library_path(k))
+                 for k in build.HOST_SOURCES])
 
         # ---- 3. kernel vs plain version on the card, exact ---------------
         t = time.time()
@@ -576,41 +626,12 @@ def main() -> int:
                                            if k.startswith("memc")])
         part_counts = torch.bincount(part.flatten().long(),
                                      minlength=4).tolist()
-        maps = dv.loop_filter_maps(out, enc.qp, enc.mbh, enc.mbw, False,
-                                   0, 0, enc.pps.chroma_qp_index_offset)
-        recon = [out[k].contiguous()
-                 for k in ("recon_y", "recon_u", "recon_v")]
-        calls = {
-            "sad": (lambda: sadk.sad_partition_minima(src8, refp_r, R),
-                    lambda: sadk.sad_partition_minima_plain(src8, refp_r, R),
-                    sad_bound_ms(H, W, R)),
-            "memc": (lambda: memck.partition_refine_mc(src8, refp_m, mv8i,
-                                                       part, R, 2),
-                     lambda: memck.partition_refine_mc_plain(
-                         src8, refp_m, mv8i, part, R, 2),
-                     memc_bound_ms(H, W, R, 25)),
-            "deblock": (lambda: dbk.deblock_apply(*recon, *maps),
-                        lambda: dbk.deblock_apply_plain(*recon, *maps),
-                        deblock_bound_ms(H, W)),
-            "quad": (lambda: sadk.sad_search_quad(src8, refp_r, R),
-                     lambda: sadk.sad_search_quad_plain(src8, refp_r, R),
-                     sad_bound_ms(H, W, R, quad=True)),
-        }
-        # (ms, plain ms, bound ms, bound by, ms back to back)
-        timing = {k: (cuda_ms(kern, 20), cuda_ms(plain, 3), *bd,
-                      cuda_ms_b2b(kern))
-                  for k, (kern, plain, bd) in calls.items()}
-        quad = timing.pop("quad")
         phase("session_1080p_parts", t, bytes=len(stream),
               i_ms=round(frame_ms[0], 1),
               p_ms=[round(x, 1) for x in frame_ms[1:]],
               psnr_y=[round(x, 2) for x in psnrs],
               mv8_match=[round(x, 4) for x in mv_ok], launches=launches,
-              session_max_abs_err=session_err, part_counts=part_counts,
-              kernel_ms={k: round(v[0], 4) for k, v in timing.items()},
-              kernel_ms_b2b={k: round(v[4], 4) for k, v in timing.items()},
-              plain_ms={k: round(v[1], 2) for k, v in timing.items()},
-              quad_ms=round(quad[0], 4), quad_ms_b2b=round(quad[4], 4))
+              session_max_abs_err=session_err, part_counts=part_counts)
 
         # ---- 6. L3, x264's ultrafast line at 1080p: batched, hierarchical --
         t = time.time()
@@ -714,24 +735,177 @@ def main() -> int:
               p_frame_cuda_ops=ops.n, psnr_y=[round(x, 2) for x in psnrs],
               mv_match=[round(x, 4) for x in mv_ok], launches=launches4)
 
-        # ---- 8. card vs CPU on a small clip, every command line ------------
+        # ---- 8. veryfast: CABAC, I4x4, 8x8 transform, AQ, weightp --------
+        t = time.time()
+        clip_v = moving_clip(w, h, VF_FRAMES, seed=4, texture=structured)
+        y_last, u_last, v_last = clip_v[-1]
+        clip_v[-1] = ((y_last * FADE).astype(np.uint8), u_last, v_last)
+        sess = CompressSession(extra_cmdline=CMDLINE_VF, device=DEV)
+        sess.begin(w, h)
+        enc = sess.encoder
+        cfg = enc.cfg
+        check((cfg.cabac, cfg.i4x4, cfg.dct8x8, cfg.aq_strength > 0,
+               cfg.weightp, cfg.scenecut > 0, cfg.partitions, cfg.subpel,
+               cfg.deblock) == (True, True, True, True, 1, True, True, 1,
+                                True) and sess._pipe is None,
+              "veryfast options reach the per-frame encoder")
+        R = cfg.search_range
+        p_outs, i4_share = [], []
+        plain_p, plain_deblock = dfin.encode_p_slots, dfin._maybe_deblock
+
+        def keep_p(*a, **k):
+            res = plain_p(*a, **k)
+            p_outs.append(res[-1])
+            return res
+
+        def keep_i4(out, *a, **k):
+            if "use_i4" in out:
+                i4_share.append(float(out["use_i4"].float().mean()))
+            return plain_deblock(out, *a, **k)
+
+        dfin.encode_p_slots, dfin._maybe_deblock = keep_p, keep_i4
+        try:
+            for m in mods.values():
+                m.LAUNCHES = 0
+            stream, frame_ms, tc_ms, mv_ok, psnrs, weighted = \
+                b"", [], [], [], [], []
+            for f, frame in enumerate(clip_v):
+                prev_ref = enc.ref
+                t1 = time.time()
+                stream += sess.compress(frame)
+                torch.cuda.synchronize()
+                frame_ms.append((time.time() - t1) * 1e3)
+                tc_ms.append(enc.transcode_ms)
+                psnrs.append(psnr(enc.last_recon[0], frame[0]))
+                if f:
+                    weighted.append(enc._wp is not None)
+                if 0 < f < VF_FRAMES - 1:      # the fade frame aside
+                    inner = enc.last_mv8.cpu().numpy()[2:-2, 2:-2] \
+                        .reshape(-1, 2)
+                    want = np.array([-4 * SHIFT[0], -4 * SHIFT[1]])
+                    mv_ok.append(float((inner == want).all(-1).mean()))
+            launches_v = {k: m.LAUNCHES for k, m in mods.items()}
+        finally:
+            dfin.encode_p_slots, dfin._maybe_deblock = plain_p, plain_deblock
+        sess.end()
+        nals = [u.nal_unit_type for u in split_annexb(stream)]
+        check(nals.count(7) == 1 and nals.count(8) == 1 and
+              nals.count(5) == 1 and nals.count(1) == VF_FRAMES - 1,
+              f"SPS, PPS, 1 IDR + {VF_FRAMES - 1} P, got NAL types {nals}")
+        check(launches_v == {"sad": VF_FRAMES - 1, "memc": VF_FRAMES - 1,
+                             "deblock": VF_FRAMES},
+              f"veryfast launches {launches_v}: want one SAD and memc per P "
+              "frame, one deblock per frame")
+        check(min(mv_ok) >= 0.9, f"veryfast interior mv8 equal to the shift: "
+              f"{mv_ok}")
+        check(min(psnrs) > 30.0, f"veryfast luma PSNR per frame {psnrs}")
+        check(weighted == [False] * (VF_FRAMES - 2) + [True],
+              f"only the fade frame is weighted: {weighted}")
+        t8_share = [float(o["t8"].float().mean()) for o in p_outs]
+        qp_range = (min(int(o["qp_real"].min()) for o in p_outs),
+                    max(int(o["qp_real"].max()) for o in p_outs))
+        check(len(i4_share) == 1 and i4_share[0] > 0, f"I_NxN MBs {i4_share}")
+        check(max(t8_share) > 0, f"8x8-transformed MBs {t8_share}")
+        check(qp_range[0] < qp_range[1], f"AQ QP range {qp_range}")
+
+        # every kernel on this phase's last P frame's inputs, formed as the
+        # encoder forms them: the search, the half-pel refinement and the
+        # loop filter over maps with 8x8 transforms and per-MB QPs
+        out = p_outs[-1]
+        H, W = 16 * enc.mbh, 16 * enc.mbw
+        src8 = torch.as_tensor(_pad(clip_v[-1][0], H, W), device=dev) \
+            .to(torch.uint8).contiguous()
+        refp_r = dv._edge_pad(prev_ref[0], R).to(torch.uint8).contiguous()
+        refp_m = dv._edge_pad(prev_ref[0], R + 8).to(torch.uint8).contiguous()
+        mins = sadk.sad_partition_minima(src8, refp_r, R)
+        part, mv8i = partition_decide_from_minima(mins, R, enc.qp)
+        check(torch.equal(memck.partition_refine_mc_plain(
+            src8, refp_m, mv8i, part, R, 1)[0], out["mv8"]),
+            "plain memc on the veryfast inputs gives the session's mv8")
+        maps = dv.loop_filter_maps(out, enc.qp, enc.mbh, enc.mbw, False,
+                                   0, 0, enc.pps.chroma_qp_index_offset)
+        recon = [out[k].contiguous()
+                 for k in ("recon_y", "recon_u", "recon_v")]
+        vf_err = {
+            "sad": max_diff(mins, sadk.sad_partition_minima_plain(
+                src8, refp_r, R)),
+            "quad": max_diff(sadk.sad_search_quad(src8, refp_r, R),
+                             sadk.sad_search_quad_plain(src8, refp_r, R)),
+            "memc": max_diff(
+                memck.partition_refine_mc(src8, refp_m, mv8i, part, R, 1),
+                memck.partition_refine_mc_plain(src8, refp_m, mv8i, part, R,
+                                                1)),
+            "deblock": max_diff(dbk.deblock_apply(*recon, *maps),
+                                dbk.deblock_apply_plain(*recon, *maps))}
+        check(not any(vf_err.values()),
+              f"kernels vs plain on the veryfast inputs: {vf_err}")
+        for k in KERNELS:
+            err[k] = max(err[k], vf_err[k])
+        err["sad"] = max(err["sad"], vf_err["quad"])
+        calls = {
+            "sad": (lambda: sadk.sad_partition_minima(src8, refp_r, R),
+                    lambda: sadk.sad_partition_minima_plain(src8, refp_r, R),
+                    sad_bound_ms(H, W, R)),
+            "memc": (lambda: memck.partition_refine_mc(src8, refp_m, mv8i,
+                                                       part, R, 1),
+                     lambda: memck.partition_refine_mc_plain(
+                         src8, refp_m, mv8i, part, R, 1),
+                     memc_bound_ms(H, W, R, 9)),
+            "deblock": (lambda: dbk.deblock_apply(*recon, *maps),
+                        lambda: dbk.deblock_apply_plain(*recon, *maps),
+                        deblock_bound_ms(H, W)),
+            "quad": (lambda: sadk.sad_search_quad(src8, refp_r, R),
+                     lambda: sadk.sad_search_quad_plain(src8, refp_r, R),
+                     sad_bound_ms(H, W, R, quad=True)),
+        }
+        # (ms, plain ms, bound ms, bound by, ms back to back)
+        timing = {k: (cuda_ms(kern, 20), cuda_ms(plain, 3), *bd,
+                      cuda_ms_b2b(kern))
+                  for k, (kern, plain, bd) in calls.items()}
+        quad = timing.pop("quad")
+        phase("session_1080p_veryfast", t, bytes=len(stream),
+              i_ms=round(frame_ms[0], 1),
+              p_ms=[round(x, 1) for x in frame_ms[1:]],
+              cabac_ms=[round(x, 2) for x in tc_ms],
+              psnr_y=[round(x, 2) for x in psnrs],
+              mv8_match=[round(x, 4) for x in mv_ok], launches=launches_v,
+              i_nxn_share=round(i4_share[0], 4),
+              t8_share=[round(x, 4) for x in t8_share],
+              weighted_p=weighted, aq_qp_range=list(qp_range),
+              session_max_abs_err=vf_err,
+              kernel_ms={k: round(v[0], 4) for k, v in timing.items()},
+              kernel_ms_b2b={k: round(v[4], 4) for k, v in timing.items()},
+              plain_ms={k: round(v[1], 2) for k, v in timing.items()},
+              quad_ms=round(quad[0], 4), quad_ms_b2b=round(quad[4], 4))
+        del p_outs, out, recon, maps
+
+        # ---- 9. card vs CPU on a small clip, every command line ------------
         t = time.time()
         small = moving_clip(*SMALL_SIZE, L3_FRAMES, seed=2, shift=HIER_SHIFT)
-        sizes = {}
-        for cmd, n in ((CMDLINE, 4), (CMDLINE_PARTS, 4),
-                         (CMDLINE_L3, L3_FRAMES), (CMDLINE_L4, 4)):
+        live = live_clip(*SMALL_SIZE, 6, seed=5, cut_at=3, fade_from=4)
+        sizes, idrs = {}, {}
+        for cmd, clip_s in ((CMDLINE, small[:4]), (CMDLINE_PARTS, small[:4]),
+                            (CMDLINE_L3, small), (CMDLINE_L4, small[:4]),
+                            (CMDLINE_VF + " --min-keyint 2", live),
+                            (CMDLINE_SF + " --min-keyint 2", live)):
             got = {}
             for d in (DEV, "cpu"):
                 s = CompressSession(extra_cmdline=cmd, device=d)
                 s.begin(*SMALL_SIZE)
-                outs = [s.compress(fr) for fr in small[:n]]
+                outs = [s.compress(fr) for fr in clip_s]
                 got[d] = (outs, s.end()["tail"], s.frames_info().delay)
             check(got[DEV] == got["cpu"], f"card and CPU outputs differ at "
                   f"{SMALL_SIZE} for {cmd!r}")
             sizes[cmd] = len(b"".join(got["cpu"][0]) + got["cpu"][1])
-        phase("card_vs_cpu", t, bytes=list(sizes.values()), identical=True)
+            idrs[cmd] = [i for i, au in enumerate(got["cpu"][0]) if 5 in
+                         [u.nal_unit_type for u in split_annexb(au)]]
+        for cmd in list(idrs)[-2:]:
+            check(idrs[cmd][:2] == [0, 3], f"the scene cut (frame 3) is an "
+                  f"IDR for {cmd!r}: IDRs at {idrs[cmd]}")
+        phase("card_vs_cpu", t, bytes=list(sizes.values()),
+              idrs=list(idrs.values()), identical=True)
 
-        # ---- 9. the record -------------------------------------------------
+        # ---- 10. the record -------------------------------------------------
         meta = {
             "sad": ("csrc/sad.cu", "x264vfw_tpu/ops/pallas/sad.py:239"),
             "memc": ("csrc/memc.cu", "x264vfw_tpu/ops/pallas/memc.py:253"),
@@ -746,11 +920,12 @@ def main() -> int:
             rec = {
                 "name": names[k], "route": "cuda",
                 "source": "x264vfw_tpu_torch/" + meta[k][0],
-                "replaces": meta[k][1], "launches": launches[k],
+                "replaces": meta[k][1], "launches": launches_v[k],
                 "max_abs_err": err[k], "ms": ms, "ms_b2b": ms_b2b,
                 "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None, "matched": err[k] == 0,
+                "slice2_launches": launches[k],
                 "l3_launches": launches3[k], "l4_launches": launches4[k],
                 "build_s": build_s[k], "ptxas": ptxas_report(k),
                 "shape": [H, W, R], "card": card}
@@ -765,7 +940,7 @@ def main() -> int:
                             "quad_bound_ms": quad[2],
                             "quad_bound_by": quad[3]})
             if k == "deblock":
-                rec["launches_per_frame"] = launches[k] // nfr
+                rec["launches_per_frame"] = launches_v[k] // VF_FRAMES
             kernels.append(rec)
         print(card, flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)

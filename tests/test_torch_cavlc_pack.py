@@ -2,17 +2,20 @@
 
 encode_blocks must give the same (vals, lens) slot for slot as
 x264vfw_tpu.bitstream.cavlc_jax.encode_blocks, and pack_slots the same
-bytes and bit count as x264vfw_tpu.encode.device_pack.pack_slots.
+bytes and bit count as x264vfw_tpu.encode.device_pack.pack_slots (its
+outputs on these inputs committed in tests/jax_refs/core.npz,
+tools/make_torch_jax_refs.py, hash-guarded) and as the host packer.
 Tolerance: none.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_jax_refs
 from x264vfw_tpu.bitstream import cavlc_jax
-from x264vfw_tpu.encode.device_pack import pack_slots as jpack
 from x264vfw_tpu.utils.bitstream import pack_codes
 from x264vfw_tpu_torch.bitstream import cavlc_dev
 from x264vfw_tpu_torch.encode.device_pack import pack_slots as tpack
@@ -43,7 +46,8 @@ def test_encode_blocks_slot_for_slot(maxc, ncs):
     nC = rng.choice(np.asarray(ncs), size=lv.shape[0]).astype(np.int32)
     gv, gl = cavlc_dev.encode_blocks(torch.from_numpy(lv),
                                      torch.from_numpy(nC), maxc)
-    wv, wl = cavlc_jax.encode_blocks(jnp.asarray(lv), jnp.asarray(nC), maxc)
+    wv, wl = jax.jit(cavlc_jax.encode_blocks, static_argnums=(2,))(
+        jnp.asarray(lv), jnp.asarray(nC), maxc)
     np.testing.assert_array_equal(gl.numpy(), np.asarray(wl))
     np.testing.assert_array_equal(gv.numpy(), np.asarray(wv).astype(np.int64))
 
@@ -60,19 +64,30 @@ def test_exp_golomb_codes():
         np.testing.assert_array_equal(gl.numpy(), np.asarray(wl))
 
 
-@pytest.mark.parametrize("shape", [(2500,), (40, 34), (7, 892)])
-def test_pack_slots_bytes(shape):
+PACK_SHAPES = [(2500,), (40, 34), (7, 892)]
+
+
+def pack_case(shape):
+    """(vals, lens) of a slot array: random codes, half of them empty, and
+    leading-zero long codes first."""
     rng = np.random.default_rng(sum(shape))
     lens = rng.integers(0, 32, size=shape)
     lens[rng.uniform(size=shape) < 0.5] = 0
     lens.flat[:3] = [46, 33, 31]                # leading-zero long codes
     vals = rng.integers(0, 1 << 31, size=shape) & ((1 << np.minimum(lens, 31)) - 1)
+    return vals, lens
+
+
+@pytest.mark.parametrize("shape", PACK_SHAPES)
+def test_pack_slots_bytes(shape):
+    vals, lens = pack_case(shape)
     got, nbits = tpack(torch.from_numpy(vals.astype(np.int64)),
                        torch.from_numpy(lens.astype(np.int32)))
-    cap = (int(lens.sum()) + 31) // 32 + 4
-    want, wbits = jpack(jnp.asarray(vals.astype(np.uint32)),
-                        jnp.asarray(lens.astype(np.int32)), cap)
-    assert nbits == int(wbits)
+    # the JAX package's pack_slots on this case (committed)
+    refs = torch_jax_refs.load("core")
+    i = PACK_SHAPES.index(shape)
+    want, wbits = refs[f"pack_{i}_bytes"], int(refs[f"pack_{i}_bits"])
+    assert nbits == wbits
     nb = (nbits + 7) // 8
     np.testing.assert_array_equal(got.numpy()[:nb], np.asarray(want)[:nb])
     ref, rbits = pack_codes(vals.reshape(-1).astype(np.uint64),

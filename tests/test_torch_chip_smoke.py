@@ -5,8 +5,10 @@ the CUDA calls stubbed and the plain versions of the SAD, memc and
 deblock kernels counted as the kernels, so a later change that breaks a
 phase or a check shows without a card: the two slice sessions, the
 batched --preset ultrafast --crf 23 session (26 frames, two windows and a
-flush), the hierarchical quarter-pel session with the loop filter, and
-card against CPU for all four command lines.
+flush), the hierarchical quarter-pel session with the loop filter, the
+veryfast session (CABAC, I4x4, the 8x8 transform, AQ, weighted P) with
+its kernels held against their plain versions, and card against CPU for
+all six command lines.
 Also: without a card the script exits non-zero and prints no result.
 """
 
@@ -120,14 +122,16 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
             "ms", "ms_b2b", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in kern)
     assert {"quad_ms", "quad_ms_b2b", "quad_bound_ms"} <= set(kern[0])
-    assert [k["launches"] for k in kern] == [5, 5, 6]
+    # the veryfast phase: one SAD and memc per P frame, one deblock per frame
+    assert [k["launches"] for k in kern] == [4, 4, 5]
+    assert [k["slice2_launches"] for k in kern] == [5, 5, 6]
     # L3 runs none of the kernels, L4 the loop filter once per frame
     assert [k["l3_launches"] for k in kern] == [0, 0, 0]
     assert [k["l4_launches"] for k in kern] == [0, 0, 4]
     phases = {ln.split("] ")[1].split(":")[0] for ln in lines
               if ln.startswith("[")}
     assert {"session_1080p_ultrafast_crf23", "session_1080p_hier_qpel_deblock",
-            "card_vs_cpu"} <= phases
+            "session_1080p_veryfast", "card_vs_cpu"} <= phases
     assert kern[2]["launches_per_frame"] == 1
     assert kern[0]["slice1_launches"] == 3
     H, W, R = kern[0]["shape"]     # one VABSDIFF4 per 4 byte differences

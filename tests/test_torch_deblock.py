@@ -6,8 +6,10 @@ build_maps; x264vfw_tpu_torch.ops.kernels.deblock.deblock_apply_plain
 against the numpy spec-order golden model apply_maps_np and against the
 JAX hot path's deblock_apply_wavefront, on cases where every bS value
 0..4 occurs; encode.device.apply_loop_filter against the JAX one for an
-intra frame and a partitioned inter frame.  Inputs come from numpy seeds.
-Tolerance: none.  The CUDA kernel is held against the plain version on
+intra frame and a partitioned inter frame (the JAX wavefront's and
+apply_loop_filter's outputs committed in tests/jax_refs/core.npz,
+tools/make_torch_jax_refs.py, hash-guarded).  Inputs come from numpy
+seeds.  Tolerance: none.  The CUDA kernel is held against the plain version on
 the card (the `cuda` test below and chip_smoke.py).
 """
 
@@ -17,7 +19,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from x264vfw_tpu.encode import device as jdev
+import torch_jax_refs
 from x264vfw_tpu.ops import deblock as jdb
 from x264vfw_tpu_torch.encode import device as tdev
 from x264vfw_tpu_torch.ops import deblock as tdb
@@ -48,8 +50,16 @@ def _planes(mbh, mbw, seed):
     return y, u.astype(np.int32), (255 - u).astype(np.int32)
 
 
+_jax_build_maps = jax.jit(jdb.build_maps, static_argnums=(5, 6, 7))
+
+
+@pytest.fixture(scope="module")
+def refs():
+    return torch_jax_refs.load("core")
+
+
 def _maps_both(meta, offA, offB, cqo):
-    want = jdb.build_maps(*(jnp.asarray(a) for a in meta), offA, offB, cqo)
+    want = _jax_build_maps(*(jnp.asarray(a) for a in meta), offA, offB, cqo)
     got = tdb.build_maps(*(torch.from_numpy(a) for a in meta), offA, offB,
                          cqo)
     return [np.asarray(w) for w in want], got
@@ -71,9 +81,12 @@ def test_build_maps_matches_jax(kind):
         np.testing.assert_array_equal(g.numpy(), w)
 
 
-@pytest.mark.parametrize("mbh,mbw,offA,offB", [(3, 4, -12, 12),
-                                               (4, 5, 12, -12)])
-def test_deblock_plain_matches_golden_and_wavefront(mbh, mbw, offA, offB):
+WAVEFRONT_CASES = [(3, 4, -12, 12), (4, 5, 12, -12)]
+
+
+@pytest.mark.parametrize("mbh,mbw,offA,offB", WAVEFRONT_CASES)
+def test_deblock_plain_matches_golden_and_wavefront(refs, mbh, mbw, offA,
+                                                    offB):
     meta = _metadata(mbh, mbw, seed=mbh * mbw)
     maps, tmaps = _maps_both(meta, offA, offB, 0)
     assert (np.bincount((maps[0] & 7).ravel(), minlength=5) > 0).all()
@@ -81,8 +94,8 @@ def test_deblock_plain_matches_golden_and_wavefront(mbh, mbw, offA, offB):
     y, u, v = _planes(mbh, mbw, seed=mbw)
     gold = [y.copy(), u.copy(), v.copy()]
     jdb.apply_maps_np(*gold, *maps)
-    wave = jax.jit(jdb.deblock_apply_wavefront)(
-        *(jnp.asarray(a) for a in (y, u, v)), *(jnp.asarray(m) for m in maps))
+    # deblock_apply_wavefront on these planes and maps (committed)
+    wave = [refs[f"dbw_{mbh}x{mbw}_{p}"] for p in "yuv"]
     got = tkd.deblock_apply(*(torch.from_numpy(a) for a in (y, u, v)),
                             *tmaps)
     for g, want, w in zip(got, gold, wave):
@@ -106,17 +119,19 @@ def _p_out(mbh, mbw, seed):
             .astype(np.int32)}
 
 
+# the QP and offsets of the apply_loop_filter case
+LF_QP, LF_OFFSETS = 30, dict(offA=4, offB=-2, qpc_offset=1)
+
+
 @pytest.mark.parametrize("intra", [True, False])
-def test_apply_loop_filter_matches_jax(intra):
+def test_apply_loop_filter_matches_jax(refs, intra):
     mbh, mbw = 3, 4
     out = _p_out(mbh, mbw, seed=5)
-    want = jdev.apply_loop_filter({k: jnp.asarray(a) for k, a in out.items()},
-                                  30, mbh, mbw, intra, offA=4, offB=-2,
-                                  qpc_offset=1)
+    # the JAX package's apply_loop_filter on the same case (committed)
+    want = [refs[f"alf_{int(intra)}_{p}"] for p in "yuv"]
     got = tdev.apply_loop_filter({k: torch.from_numpy(a)
                                   for k, a in out.items()},
-                                 30, mbh, mbw, intra, offA=4, offB=-2,
-                                 qpc_offset=1)
+                                 LF_QP, mbh, mbw, intra, **LF_OFFSETS)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert (got[0].numpy() != out["recon_y"]).any()

@@ -1,7 +1,10 @@
 """Device encode cores of the port vs the JAX package: the I16x16
 wavefront (encode_i_frame_core) and the P16x16 core with the exhaustive
 integer-pel search (encode_p_frame_core, which reaches the SAD kernel's
-plain version on the CPU), compared tensor by tensor.  Tolerance: none.
+plain version on the CPU), compared tensor by tensor.  The JAX package's
+outputs for these inputs (its cores, its finalisation's bytes and its
+motion compensation) are committed in tests/jax_refs/core.npz
+(tools/make_torch_jax_refs.py, hash-guarded).  Tolerance: none.
 """
 
 import numpy as np
@@ -9,7 +12,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from x264vfw_tpu.encode import device as jdev
+import torch_jax_refs
 from x264vfw_tpu_torch.encode import device as tdev
 from x264vfw_tpu_torch.encode.intra_wavefront import satd_lambda
 
@@ -26,8 +29,9 @@ def _planes(seed):
     return y, u, v
 
 
-@pytest.fixture(scope="module")
-def frames():
+def frame_planes():
+    """(current planes, reference planes): the reference is the current
+    frame moved by whole pels."""
     cur = _planes(1)
     ref = (np.roll(cur[0], (2, -3), (0, 1)), np.roll(cur[1], (1, -1), (0, 1)),
            np.roll(cur[2], (1, -2), (0, 1)))
@@ -35,17 +39,37 @@ def frames():
 
 
 @pytest.fixture(scope="module")
-def jax_i(frames):
-    out = jdev.encode_i_frame(*(jnp.asarray(p) for p in frames[0]), QP, QPC)
-    return {k: np.asarray(v) for k, v in out.items()}
+def frames():
+    return frame_planes()
 
 
 @pytest.fixture(scope="module")
-def jax_p(frames):
-    cur, ref = frames
-    out = jdev.encode_p_frame(*(jnp.asarray(p) for p in cur + ref), QP, QPC,
-                              rng=R, subpel=0, me_backend="xla")
-    return {k: np.asarray(v) for k, v in out.items()}
+def refs():
+    return torch_jax_refs.load("core")
+
+
+def _prefixed(refs, prefix):
+    return {k[len(prefix):]: v for k, v in refs.items()
+            if k.startswith(prefix)}
+
+
+@pytest.fixture(scope="module")
+def jax_i(refs):
+    """The JAX package's encode_i_frame on frames()[0] (committed)."""
+    return _prefixed(refs, "ei_")
+
+
+@pytest.fixture(scope="module")
+def jax_p(refs):
+    """The JAX package's encode_p_frame (exhaustive XLA search) on
+    frames() (committed)."""
+    return _prefixed(refs, "ep_")
+
+
+def finalize_case():
+    """The slice-header slots the finalisation test puts in front."""
+    rng = np.random.default_rng(4)
+    return rng.integers(0, 2, 37).astype(np.int64), np.ones(37, np.int32)
 
 
 def _compare(got: dict, want: dict) -> None:
@@ -70,48 +94,35 @@ def test_p_frame_core(frames, jax_p):
 
 
 @pytest.mark.parametrize("ftype", ["I", "P"])
-def test_finalize_bytes(frames, jax_i, jax_p, ftype):
+def test_finalize_bytes(frames, refs, ftype):
     """Syntax tensors -> CAVLC slots -> packed slice bytes, both packages,
-    each from its own core's output."""
-    from x264vfw_tpu.encode import device_finalize as jfin
+    each from its own core's output (the JAX package's committed)."""
     from x264vfw_tpu_torch.encode import device_finalize as tfin
-    rng = np.random.default_rng(4)
-    hv = rng.integers(0, 2, 37).astype(np.int64)
-    hl = np.ones(37, np.int32)
+    hv, hl = finalize_case()
     cur, ref = frames
     if ftype == "I":
         out = tdev.encode_i_frame_core(
             *(torch.from_numpy(p) for p in cur), QP, QPC)
-        want, wbits = jfin.finalize_i(
-            {k: jnp.asarray(v) for k, v in jax_i.items()},
-            jnp.asarray(hv, jnp.uint32), jnp.asarray(hl), H // 16, W // 16,
-            1 << 12)
         got, bits = tfin.finalize_i(out, torch.from_numpy(hv),
                                     torch.from_numpy(hl), H // 16, W // 16)
     else:
         out = tdev.encode_p_frame_core(
             *(torch.from_numpy(p) for p in cur + ref), QP, QPC, rng=R)
-        want, wbits = jfin.finalize_p(
-            {k: jnp.asarray(v) for k, v in jax_p.items()},
-            jnp.asarray(hv, jnp.uint32), jnp.asarray(hl), H // 16, W // 16,
-            1 << 12)
         got, bits = tfin.finalize_p(out, torch.from_numpy(hv),
                                     torch.from_numpy(hl), H // 16, W // 16)
-    assert bits == int(wbits) and bits % 8 == 0
-    np.testing.assert_array_equal(got.numpy()[:bits // 8],
-                                  np.asarray(want)[:bits // 8])
+    want, wbits = refs[f"fin_{ftype}_bytes"], int(refs[f"fin_{ftype}_bits"])
+    assert bits == wbits and bits % 8 == 0
+    np.testing.assert_array_equal(got.numpy()[:bits // 8], want[:bits // 8])
 
 
-def test_p_frame_motion_compensation(frames):
+def test_p_frame_motion_compensation(frames, refs):
     """Luma prediction at the found vectors equals the reference sample at
     (y + dy, x + dx), edge-clamped; chroma at eighth-pel bilinear."""
     cur, ref = frames
     planes = [torch.from_numpy(p) for p in cur + ref]
-    mv_q, pred_y, pred_u, pred_v = tdev._motion_search_and_mc(*planes, R)
-    jmv, jy, ju, jv = jdev._motion_search_and_mc(
-        *(jnp.asarray(p) for p in cur + ref), R, subpel=0, me_backend="xla")
-    for a, b in ((mv_q, jmv), (pred_y, jy), (pred_u, ju), (pred_v, jv)):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    got = tdev._motion_search_and_mc(*planes, R)
+    for name, a in zip(("mv_q", "pred_y", "pred_u", "pred_v"), got):
+        np.testing.assert_array_equal(a.numpy(), refs[f"mc_{name}"])
 
 
 @pytest.mark.parametrize("what", ["hier", "subpel"])

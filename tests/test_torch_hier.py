@@ -17,8 +17,9 @@ refinement and the loop filter), 1 IDR + 3 P at 64x48 on a clip moving
 beyond the +-2 rescue: bytes compared exactly with the JAX package's, and
 stock FFmpeg decodes its stream to the port's own (deblocked)
 reconstruction.  (The slice-2 partition line without --me esa is held to
-slice 2's bytes in test_torch_partitions.py.)  Inputs come from numpy
-seeds.
+slice 2's bytes in test_torch_partitions.py.)  The JAX session's access
+units are committed in tests/jax_refs/l4.npz (tools/make_torch_jax_refs.py,
+hash-guarded).  Inputs come from numpy seeds.
 """
 
 import numpy as np
@@ -28,8 +29,8 @@ import pytest
 import torch
 
 import oracle
+import torch_jax_refs
 from test_torch_session import moving_clip
-from x264vfw_tpu.api import CompressSession as JaxSession
 from x264vfw_tpu.encode import device as jdev
 from x264vfw_tpu_torch.api import CompressSession
 from x264vfw_tpu_torch.encode import device as tdev
@@ -108,12 +109,8 @@ def session_clip():
 
 @pytest.fixture(scope="module")
 def jax_l4():
-    """The JAX package's access units for L4."""
-    s = JaxSession(extra_cmdline=L4)
-    s.begin(SW, SH)
-    aus = [s.compress(f) for f in session_clip()]
-    s.end()
-    return aus
+    """The JAX package's access units for L4 (committed)."""
+    return torch_jax_refs.aus(torch_jax_refs.load("l4"), "session")
 
 
 def test_session_bytes_equal_jax(jax_l4):

@@ -4,6 +4,9 @@
   anything of the JAX package x264vfw_tpu (AST scan of every import).
 * The entry points default to the CUDA device and raise when there is
   none, instead of carrying on on the CPU.
+* No file of x264vfw_tpu_torch/, nor chip_smoke.py, names the tools/
+  directory, whose C sources and libraries are the JAX package's: the
+  port builds its own copies (csrc/host/) into its _build/.
 * Options outside the ported slices raise NotImplementedError naming the
   ROADMAP instead of encoding something else; a session the JAX package
   would batch runs through the port's BatchPipeline.
@@ -12,6 +15,7 @@
 import ast
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -45,6 +49,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert bad == []
 
 
+def test_port_never_names_the_tools_directory():
+    """No string literal of the port's sources is a path into tools/
+    (where the JAX package builds its host libraries)."""
+    bad = []
+    for f in _port_files():
+        tree = ast.parse(open(f).read(), filename=f)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                    and node.value.strip("/").split("/")[0] == "tools":
+                bad.append((os.path.relpath(f, ROOT), node.value))
+    assert bad == []
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -68,17 +85,46 @@ def test_encoder_and_state_without_cuda_raise(no_cuda):
         state_from_numpy(z, z[:8, :8], z[:8, :8], frame_idx=1)
 
 
-@pytest.mark.parametrize("extra", ["", "--bframes 2", "--ref 2", "--cabac",
-                                   "--partitions i8x8",
-                                   "--partitions p8x8,i4x4",
-                                   "--aq-mode 1", "--weightp 1"])
+@pytest.mark.parametrize("extra", ["", "--bframes 2", "--ref 2",
+                                   "--trellis 1", "--mbtree",
+                                   "--cabac", "--aq-mode 1", "--8x8dct"])
 def test_out_of_slice_options_raise(extra):
+    """Options the port cannot encode raise: B frames, multi-ref and
+    trellis anywhere, MB-tree (a batched session), and on the batched
+    session CABAC, AQ and the 8x8 transform, which its P runs do not
+    carry yet."""
     from x264vfw_tpu_torch.api import CompressSession
     base = "" if extra == "" else "--preset ultrafast --me esa "
     s = CompressSession(extra_cmdline=(base + extra).strip() or "--qp 26",
                         device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         s.begin(64, 48)
+
+
+@pytest.mark.parametrize("extra", ["--cabac", "--partitions i8x8",
+                                   "--partitions p8x8,i4x4",
+                                   "--aq-mode 1", "--weightp 1",
+                                   "--8x8dct", "--scenecut 40"])
+def test_out_of_slice_options_now_run(extra):
+    """Refused before CABAC, I4x4, AQ, weighted prediction, the 8x8
+    transform and scene cuts were ported; on the per-frame path they
+    begin and encode a frame now (--partitions i8x8 is taken and
+    ignored, as in the JAX package)."""
+    from x264vfw_tpu_torch.api import CompressSession
+    s = CompressSession(extra_cmdline="--preset ultrafast --tune zerolatency "
+                        "--me esa " + extra, device="cpu")
+    s.begin(32, 32)
+    assert s._pipe is None
+    au = s.compress((np.full((32, 32), 90, np.uint8),
+                     np.full((16, 16), 128, np.uint8),
+                     np.full((16, 16), 128, np.uint8)))
+    assert au and s.end()["frames"] == 1
+    cfg = s.encoder.cfg
+    assert cfg.i4x4 == ("i4x4" in extra)
+    assert (cfg.cabac, cfg.aq_strength > 0, cfg.weightp, cfg.dct8x8,
+            cfg.scenecut) == ("--cabac" in extra, "--aq-mode" in extra,
+                              int("--weightp" in extra), "--8x8dct" in extra,
+                              40 if "--scenecut" in extra else 0)
 
 
 def test_other_containers_raise():

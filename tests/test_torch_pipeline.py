@@ -8,15 +8,17 @@ until the second window fills, the 24th call returns the first window's
 too, is 5 frames long, so JAX compiles one batched P program.  Each
 return, the tail and frames_info().delay are compared exactly.  Then
 stock FFmpeg decodes the --crf 23 stream to the port's own
-reconstruction.  Inputs come from numpy seeds.
+reconstruction.  The JAX sessions' outputs are committed in
+tests/jax_refs/l3.npz (tools/make_torch_jax_refs.py, hash-guarded).
+Inputs come from numpy seeds.
 """
 
 import numpy as np
 import pytest
 
 import oracle
+import torch_jax_refs
 from test_torch_session import moving_clip
-from x264vfw_tpu.api import CompressSession as JaxSession
 from x264vfw_tpu_torch.api import CompressSession
 from x264vfw_tpu_torch.bitstream.nal import split_annexb
 from x264vfw_tpu_torch.encode import device_finalize as dfin
@@ -37,21 +39,20 @@ def run(session):
     return outs, session.end()["tail"], session.frames_info().delay
 
 
+def rate_key(rate):
+    """"--crf 23" -> "crf23": the rate setting's key in l3.npz."""
+    return rate.replace("-", "").replace(" ", "")
+
+
 @pytest.fixture(scope="module")
 def jax_sessions():
     """The JAX package's compress() returns, tail and delay per rate
-    setting.  The second session is handed the first one's I-frame
-    program (the same function of the geometry), so that XLA compiles it
-    once; the P programs are shared by jit's own cache."""
-    out, i_full = {}, None
-    for rate in RATES:
-        s = JaxSession(extra_cmdline=f"{L3} {rate}")
-        s.begin(W, H)
-        s.encoder._i_full = i_full
-        outs = [s.compress(f) for f in clip()]
-        out[rate] = (outs, s.end()["tail"], s.frames_info().delay)
-        i_full = s.encoder._i_full
-    return out
+    setting (committed)."""
+    refs = torch_jax_refs.load("l3")
+    return {rate: (torch_jax_refs.aus(refs, f"{rate_key(rate)}_out"),
+                   refs[f"{rate_key(rate)}_tail"].tobytes(),
+                   int(refs[f"{rate_key(rate)}_delay"]))
+            for rate in RATES}
 
 
 @pytest.mark.parametrize("rate", RATES)

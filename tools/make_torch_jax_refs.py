@@ -1,5 +1,5 @@
-"""Write the JAX package's outputs that the port's slice-1 and slice-2
-session tests compare against (tests/jax_refs/slice1.npz, slice2.npz).
+"""Write the JAX package's outputs that the port's session tests compare
+against (tests/jax_refs/{slice1,slice2,live,l3,l4}.npz).
 
     JAX_PLATFORMS=cpu python tools/make_torch_jax_refs.py
 
@@ -16,7 +16,27 @@ source hash no longer matches.  Each file holds:
     ignores);
   * for the test that loads a reference picture into both encoders
     (convert.state_from_numpy), the JAX P frame's access unit (p_au) and
-    its reconstruction (p_ref_y, p_ref_u, p_ref_v).
+    its reconstruction (p_ref_y, p_ref_u, p_ref_v);
+  * live.npz (test_torch_live_presets.py, test_torch_intra4x4.py): the
+    access units and tail of the veryfast, superfast and scene-cut
+    sessions (<line>_<index>, <line>_tail); the slope-2 I frame with
+    I4x4 at 64x48 and 128x96 (i<w>x<h>_<output key>) and its slot rows
+    (i<w>x<h>_t8<0|1>_vals/_lens); and the converted-state case (cs_*:
+    the JAX encoder's config fields, DPB, counters, weight-analysis and
+    scene-cut state after CONVERT_AT frames, then its next frames' access
+    units and reconstructions);
+  * l3.npz (test_torch_pipeline.py): per rate setting every compress()
+    return, the tail and frames_info().delay of the batched session;
+  * l4.npz (test_torch_hier.py): the access units of the L4 session;
+  * core.npz (test_torch_{encode_core,deblock,cavlc_pack}.py): the I and
+    P cores' outputs (ei_*, ep_*), their finalisation's bytes and bit
+    counts (fin_I_*, fin_P_*), the exhaustive search's MC (mc_*), the
+    deblock wavefront (dbw_<mbh>x<mbw>_<plane>), apply_loop_filter
+    (alf_<intra>_<plane>) and pack_slots (pack_<i>_bytes, _bits) on
+    those tests' inputs.
+  live.npz also holds the P cores of test_torch_aq_t8.py
+  (pcore_<partitions>_<qp>_<output key>, and _lf_<plane> for the loop
+  filter over them).
 """
 
 from __future__ import annotations
@@ -30,10 +50,26 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+import dataclasses  # noqa: E402
+
+import jax  # noqa: E402
+
+import test_torch_aq_t8 as tq  # noqa: E402
+import test_torch_cavlc_pack as tcp  # noqa: E402
+import test_torch_deblock as tdb  # noqa: E402
+import test_torch_encode_core as tec  # noqa: E402
+import test_torch_hier as th  # noqa: E402
+import test_torch_intra4x4 as ti  # noqa: E402
+import test_torch_live_presets as tl  # noqa: E402
 import test_torch_partitions as tp  # noqa: E402
+import test_torch_pipeline as tpl  # noqa: E402
 import test_torch_session as ts  # noqa: E402
 import torch_jax_refs as refs  # noqa: E402
 from x264vfw_tpu.api import CompressSession  # noqa: E402
+from x264vfw_tpu.encode import device as jdev  # noqa: E402
+from x264vfw_tpu.encode import device_finalize as jfin  # noqa: E402
+from x264vfw_tpu.encode.device_pack import pack_slots as jpack  # noqa: E402
+from x264vfw_tpu.ops import deblock as jdb  # noqa: E402
 from x264vfw_tpu.encode.tpu_encoder import TpuEncoder  # noqa: E402
 
 
@@ -63,6 +99,143 @@ def put_aus(out: dict, prefix: str, aus: list) -> None:
         out[f"{prefix}_{i}"] = np.frombuffer(au, np.uint8)
 
 
+def live_refs(digest) -> dict:
+    out = {"source_sha256": digest}
+    for name, cmd in tl.LINES.items():
+        s = CompressSession(extra_cmdline=cmd)
+        s.begin(tl.W, tl.H)
+        put_aus(out, name, [s.compress(f) for f in tl.line_clip(name)])
+        out[f"{name}_tail"] = np.frombuffer(s.end()["tail"], np.uint8)
+
+    core = jax.jit(jdev.encode_i_frame_core, static_argnames=("i4x4",))
+    fin = jax.jit(jfin._finalize_i_core, static_argnums=(3, 4, 5))
+    for w, h in ti.I_GEOMS:
+        y, u, v, qp, qpc = ti.i_frame_case(w, h)
+        res = core(*(jnp.asarray(p) for p in (y, u, v)), qp, qpc, i4x4=True)
+        for k, a in res.items():
+            out[f"i{w}x{h}_{k}"] = np.asarray(a)
+        for t8 in (False, True):
+            vals, lens = fin(res, jnp.asarray(ti.HDR_VALS, jnp.uint32),
+                             jnp.asarray(ti.HDR_LENS, jnp.int32),
+                             h // 16, w // 16, t8)
+            out[f"i{w}x{h}_t8{int(t8)}_vals"] = np.asarray(vals)
+            out[f"i{w}x{h}_t8{int(t8)}_lens"] = np.asarray(lens)
+
+    pcore = jax.jit(jdev.encode_p_frame_core, static_argnames=(
+        "rng", "subpel", "me_backend", "aq_strength", "qpc_offset",
+        "decimate", "trellis", "partitions", "dct8x8"))
+    lf = jax.jit(jdev.apply_loop_filter, static_argnums=(1, 2, 3, 4))
+    src, ref = tq.p_case()
+    for parts, qp, wp in tq.P_CORE_CASES:
+        key = tq.p_core_key(parts, qp)
+        res = pcore(*(jnp.asarray(a) for a in src + ref), qp, qp,
+                    wp=None if wp is None else tuple(jnp.int32(x)
+                                                     for x in wp),
+                    partitions=parts, **tq.P_CORE_KW)
+        for k, a in res.items():
+            out[f"{key}_{k}"] = np.asarray(a)
+        for p, a in zip("yuv", lf(res, qp, 3, 4, False)):
+            out[f"{key}_lf_{p}"] = np.asarray(a)
+
+    # converted state: the JAX session's encoder after CONVERT_AT frames
+    s = CompressSession(extra_cmdline=tl.VERYFAST)
+    s.begin(tl.W, tl.H)
+    clip = tl.converted_state_clip()
+    for f in clip[:tl.CONVERT_AT]:
+        s.compress(f)
+    enc = s.encoder
+    assert enc._scenecut._ema is not None and enc._wp_prev is not None
+    for k, val in dataclasses.asdict(enc.cfg).items():
+        out[f"cs_cfg_{k}"] = np.asarray(val)
+    for k, p in zip("yuv", enc.ref):
+        out[f"cs_ref_{k}"] = np.asarray(p).astype(np.uint8)
+    out.update(cs_frame_idx=enc.frame_idx, cs_frame_num=enc.frame_num,
+               cs_idr_id=enc.idr_id, cs_poc=enc.poc,
+               cs_last_idr=enc._last_idr_d, cs_wp_prev=enc._wp_prev,
+               cs_scenecut_prev=enc._scenecut.prev,
+               cs_scenecut_ema=enc._scenecut._ema, cs_qp=tl.CONVERT_QP)
+    for i, f in enumerate(clip[tl.CONVERT_AT:]):
+        (au, _, key), = enc.push_frame(*f, qp_i=tl.CONVERT_QP,
+                                        qp_p=tl.CONVERT_QP)
+        assert not key
+        out[f"cs_au_{i}"] = np.frombuffer(au, np.uint8)
+        for k, p in zip("yuv", enc.ref):
+            out[f"cs_rec{i}_{k}"] = np.asarray(p).astype(np.uint8)
+    return out
+
+
+def l3_refs(digest) -> dict:
+    """As test_torch_pipeline.py's sessions: the second session is handed
+    the first one's I-frame program, so that XLA compiles it once."""
+    out, i_full = {"source_sha256": digest}, None
+    for rate in tpl.RATES:
+        s = CompressSession(extra_cmdline=f"{tpl.L3} {rate}")
+        s.begin(tpl.W, tpl.H)
+        s.encoder._i_full = i_full
+        key = tpl.rate_key(rate)
+        put_aus(out, f"{key}_out", [s.compress(f) for f in tpl.clip()])
+        out[f"{key}_tail"] = np.frombuffer(s.end()["tail"], np.uint8)
+        out[f"{key}_delay"] = s.frames_info().delay
+        i_full = s.encoder._i_full
+    return out
+
+
+def l4_refs(digest) -> dict:
+    out = {"source_sha256": digest}
+    put_aus(out, "session", session_aus(th.L4, th.SW, th.SH,
+                                        th.session_clip()))
+    return out
+
+
+def core_refs(digest) -> dict:
+    out = {"source_sha256": digest}
+    cur, ref = tec.frame_planes()
+    ji = jdev.encode_i_frame(*(jnp.asarray(p) for p in cur), tec.QP,
+                             tec.QPC)
+    jp = jdev.encode_p_frame(*(jnp.asarray(p) for p in cur + ref), tec.QP,
+                             tec.QPC, rng=tec.R, subpel=0, me_backend="xla")
+    for prefix, res in (("ei", ji), ("ep", jp)):
+        for k, a in res.items():
+            out[f"{prefix}_{k}"] = np.asarray(a)
+    hv, hl = tec.finalize_case()
+    mbh, mbw = tec.H // 16, tec.W // 16
+    for ftype, fin, res in (("I", jfin.finalize_i, ji),
+                            ("P", jfin.finalize_p, jp)):
+        data, bits = fin(res, jnp.asarray(hv, jnp.uint32), jnp.asarray(hl),
+                         mbh, mbw, 1 << 12)
+        out[f"fin_{ftype}_bytes"] = np.asarray(data)[:(int(bits) + 7) // 8]
+        out[f"fin_{ftype}_bits"] = int(bits)
+    mc = jdev._motion_search_and_mc(*(jnp.asarray(p) for p in cur + ref),
+                                    tec.R, subpel=0, me_backend="xla")
+    for name, a in zip(("mv_q", "pred_y", "pred_u", "pred_v"), mc):
+        out[f"mc_{name}"] = np.asarray(a)
+
+    for mbh, mbw, offA, offB in tdb.WAVEFRONT_CASES:
+        maps = jdb.build_maps(*(jnp.asarray(a) for a in tdb._metadata(
+            mbh, mbw, seed=mbh * mbw)), offA, offB, 0)
+        wave = jax.jit(jdb.deblock_apply_wavefront)(
+            *(jnp.asarray(a) for a in tdb._planes(mbh, mbw, seed=mbw)),
+            *maps)
+        for p, a in zip("yuv", wave):
+            out[f"dbw_{mbh}x{mbw}_{p}"] = np.asarray(a)
+    lf_out = tdb._p_out(3, 4, seed=5)
+    for intra in (True, False):
+        res = jdev.apply_loop_filter(
+            {k: jnp.asarray(a) for k, a in lf_out.items()}, tdb.LF_QP, 3, 4,
+            intra, **tdb.LF_OFFSETS)
+        for p, a in zip("yuv", res):
+            out[f"alf_{int(intra)}_{p}"] = np.asarray(a)
+
+    for i, shape in enumerate(tcp.PACK_SHAPES):
+        vals, lens = tcp.pack_case(shape)
+        data, bits = jpack(jnp.asarray(vals.astype(np.uint32)),
+                           jnp.asarray(lens.astype(np.int32)),
+                           (int(lens.sum()) + 31) // 32 + 4)
+        out[f"pack_{i}_bytes"] = np.asarray(data)[:(int(bits) + 7) // 8]
+        out[f"pack_{i}_bits"] = int(bits)
+    return out
+
+
 def main() -> int:
     digest = np.asarray(refs.source_hash())
     os.makedirs(refs.REF_DIR, exist_ok=True)
@@ -81,6 +254,9 @@ def main() -> int:
                                      ts.moving_clip(64, 48, 3, seed=64)))
     s2.update(p_frame(*tp.converted_state_case()))
     np.savez_compressed(refs.path("slice2"), **s2)
+    for name, make in (("live", live_refs), ("l3", l3_refs),
+                       ("l4", l4_refs), ("core", core_refs)):
+        np.savez_compressed(refs.path(name), **make(digest))
     for name in refs.NAMES:
         print(refs.path(name), os.path.getsize(refs.path(name)), "bytes")
     return 0

@@ -1,7 +1,7 @@
 """Where a frame's time goes in the PyTorch/CUDA port, on one CUDA card.
 
     python3 tools/torch_profile_frames.py [--width 1920 --height 1080]
-                                          [--parts | --l4]
+                                          [--parts | --l4 | --veryfast]
                                           [--out profile.jsonl]
 
 Encodes a textured clip moving by a known shift with the port's
@@ -9,8 +9,11 @@ CompressSession (--preset ultrafast --tune zerolatency --me esa --qp 26
 --keyint 2, so I and P frames alternate; with --parts also --deblock 0:0
 --partitions p8x8 --subme 7; with --l4 the line --preset ultrafast
 --tune zerolatency --qp 26 --subme 7 --deblock 0:0 --keyint 2, whose
-search is the hierarchical one), warms up on the first two frames, then
-profiles two I and two P frames one by one with torch.profiler.  Prints
+search is the hierarchical one; with --veryfast x264's --preset veryfast
+--tune zerolatency --crf 23 --keyint 2: CABAC, I4x4, the 8x8 transform,
+AQ, weighted P, partitions), warms up on the first two frames, then
+profiles two I and two P frames (with --veryfast one of each) one by one
+with torch.profiler.  Prints
 one JSON line per profiled frame: host wall ms (under the profiler,
 which slows the host), the summed duration of the CUDA kernels, the
 device's busy share of the wall time, the number of kernel launches, and
@@ -20,8 +23,9 @@ pull, NAL wrap), synchronised after each stage; `p_core` includes the
 motion search, which `motion_search_mc` times alone (with --parts: the
 partition search, refinement and MC; with --l4 split into
 `hier_search`, `subpel_planes`, `subpel_refine` with the luma MC and
-`chroma_mc`), and `deblock_maps` and `deblock_kernel` time the loop
-filter of the frame's reconstruction.  With --l4 a last line gives the
+`chroma_mc`), `deblock_maps` and `deblock_kernel` time the loop
+filter of the frame's reconstruction, and with --cabac on `cabac` the
+host CABAC transcode.  With --l4 a last line gives the
 kernel launches and device ms of the hierarchical search, the sub-pel
 step and the chroma MC of one P frame, each run 10 times under the
 profiler alone, per run.
@@ -48,6 +52,7 @@ CMDLINE = ("--preset ultrafast --tune zerolatency --me esa --qp 26 "
 PARTS = " --deblock 0:0 --partitions p8x8 --subme 7"
 L4 = ("--preset ultrafast --tune zerolatency --qp 26 --subme 7 "
       "--deblock 0:0 --keyint 2")
+VERYFAST = "--preset veryfast --tune zerolatency --crf 23 --keyint 2"
 
 
 def clip(w: int, h: int, frames: int, shift=(3, -2), seed: int = 1):
@@ -164,14 +169,17 @@ def stage_lines(enc, prev, cur, card) -> list[str]:
                     *planes, *enc.ref, cfg.search_range))
             o = stage("p_core", lambda: dv.encode_p_frame_core(
                 *planes, *enc.ref, enc.qp, enc.qpc, cfg.search_range,
-                cfg.subpel, partitions=cfg.partitions))
+                cfg.subpel, cfg.me_backend, partitions=cfg.partitions,
+                aq_strength=cfg.aq_strength,
+                qpc_offset=enc.pps.chroma_qp_index_offset, wp=enc._wp,
+                dct8x8=cfg.dct8x8))
             v, ln = stage("cavlc_slots", lambda: df._finalize_p_core(
-                o, hv, hl, enc.mbh, enc.mbw))
+                o, hv, hl, enc.mbh, enc.mbw, t8_mode=cfg.dct8x8))
         else:
             o = stage("i_core", lambda: dv.encode_i_frame_core(
-                *planes, enc.qp, enc.qpc))
+                *planes, enc.qp, enc.qpc, cfg.i4x4))
             v, ln = stage("cavlc_slots", lambda: df._finalize_i_core(
-                o, hv, hl, enc.mbh, enc.mbw))
+                o, hv, hl, enc.mbh, enc.mbw, t8_mode=cfg.dct8x8))
         if cfg.deblock:
             maps = stage("deblock_maps", lambda: dv.loop_filter_maps(
                 o, enc.qp, enc.mbh, enc.mbw, ftype == "I",
@@ -182,6 +190,9 @@ def stage_lines(enc, prev, cur, card) -> list[str]:
                                               "recon_v")), *maps))
         data, nbits = stage("pack", lambda: df.pack_slots(v, ln))
         payload = stage("pull", lambda: data[:(nbits + 7) // 8].cpu().numpy())
+        if cfg.cabac:
+            payload = stage("cabac", lambda: np.frombuffer(
+                enc._transcode(payload, hl, ftype), np.uint8))
         stage("nal_wrap", lambda: wrap_nal(3, NAL_SLICE, payload))
         out.append(json.dumps({"stages": ftype, "ms": ms,
                                "parts": bool(cfg.partitions),
@@ -201,6 +212,9 @@ def main() -> int:
     ap.add_argument("--l4", action="store_true",
                     help="the hierarchical line: --preset ultrafast --tune "
                     "zerolatency --qp 26 --subme 7 --deblock 0:0")
+    ap.add_argument("--veryfast", action="store_true",
+                    help="x264's live line: --preset veryfast --tune "
+                    "zerolatency --crf 23")
     ap.add_argument("--out", help="also write the JSON lines to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -213,14 +227,17 @@ def main() -> int:
                           text=True, timeout=10).stdout.strip()
     frames = clip(args.width, args.height, 6,
                   shift=(9, -6) if args.l4 else (3, -2))
-    s = CompressSession(extra_cmdline=L4 if args.l4 else
+    s = CompressSession(extra_cmdline=L4 if args.l4 else VERYFAST
+                        if args.veryfast else
                         CMDLINE + (PARTS if args.parts else ""))
     s.begin(args.width, args.height)
     for f in frames[:2]:                        # warm-up: I, P
         s.compress(f)
     torch.cuda.synchronize()
     lines = []
-    for i, f in enumerate(frames[2:]):
+    # an I frame of the veryfast line is ~800k launches: profile one I and
+    # one P frame of it, two of each of the others
+    for i, f in enumerate(frames[2:4 if args.veryfast else 6]):
         ftype = "I" if i % 2 == 0 else "P"
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -240,7 +257,8 @@ def main() -> int:
                 "kernel_launches": len(kern),
                 "top_device_ms": [[k[:80], v / 1e3] for k, v in top],
                 "card": card, "size": [args.width, args.height],
-                "parts": args.parts, "l4": args.l4}
+                "parts": args.parts, "l4": args.l4,
+                "veryfast": args.veryfast}
         lines.append(json.dumps(line))
         print(lines[-1], flush=True)
     lines += stage_lines(s.encoder, frames[3], frames[4], card)

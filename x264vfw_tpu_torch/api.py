@@ -14,11 +14,15 @@ device unless built with device="cpu".
 The port encodes x264's --preset ultrafast: I16x16 + P16x16 CAVLC, one
 reference, the hierarchical integer search of --me dia/hex/umh or the
 exhaustive one of --me esa/tesa; and on top of it --subme 1-11
-(half/quarter-pel refinement), --deblock (the in-loop filter) and
---partitions p8x8 (16x16/16x8/8x16/8x8 P partitions).  A zero-latency
-session (--tune zerolatency) or one with --threads 1 encodes frame by
-frame; any other goes through the batched pipeline (encode/pipeline.py,
-windows of 12 frames), as in the JAX package.  Options outside it raise
+(half/quarter-pel refinement), --deblock (the in-loop filter),
+--partitions p8x8 (16x16/16x8/8x16/8x8 P partitions) and i4x4 (I_NxN;
+i8x8 is taken and ignored, as in the JAX package), and on the per-frame
+path --cabac (a host transcode of the CAVLC slice), --8x8dct, --aq-mode,
+--weightp and --scenecut: x264's --preset veryfast and superfast with
+--tune zerolatency.  A zero-latency session (--tune zerolatency) or one
+with --threads 1 encodes frame by frame; any other goes through the
+batched pipeline (encode/pipeline.py, windows of 12 frames, ultrafast's
+options only), as in the JAX package.  Options outside it raise
 NotImplementedError naming the ROADMAP queue; the session never encodes
 something other than what was asked.
 """
@@ -74,16 +78,11 @@ def _p_partitions(p: EncoderParams) -> bool:
 
 
 def _out_of_slice(p: EncoderParams) -> list[str]:
-    """Requested options this port cannot encode yet."""
-    intra_parts = "none" not in p.partitions and any(
-        k in p.partitions for k in ("i4x4", "i8x8"))
+    """Requested options this port cannot encode yet (the batched
+    pipeline refuses more: encode/pipeline.BatchPipeline)."""
     return [name for name, on in (
-        ("--bframes", p.bframes > 0), ("--cabac", p.cabac),
-        ("--partitions i4x4/i8x8", intra_parts),
-        ("--8x8dct", p.dct8x8), ("--ref > 1", p.ref > 1),
-        ("--aq-mode", p.aq_mode > 0), ("--trellis", p.trellis > 0),
-        ("--weightp", p.weightp > 0), ("--mbtree", bool(p.mbtree)),
-        ("--scenecut", p.scenecut > 0),
+        ("--bframes", p.bframes > 0), ("--ref > 1", p.ref > 1),
+        ("--trellis", p.trellis > 0), ("--mbtree", bool(p.mbtree)),
         ("--threads > 1 (multi-device)", p.threads > 1),
         ("--psnr/--ssim", bool(p.psnr or p.ssim)),
     ) if on]
@@ -144,7 +143,14 @@ class CompressSession:
             search_range=min(p.merange, 16),
             # --subme ladder: 0 = integer-pel, 1-3 = half, 4+ = quarter
             subpel=0 if p.subme == 0 else (1 if p.subme <= 3 else 2),
+            cabac=p.cabac,
+            aq_strength=float(p.aq_strength) if p.aq_mode else 0.0,
+            trellis=p.trellis > 0,
             partitions=_p_partitions(p),
+            # i4x4 is the intra side of --partitions; i8x8 has no encoder
+            i4x4="none" not in p.partitions and "i4x4" in p.partitions,
+            dct8x8=bool(p.dct8x8),
+            weightp=p.weightp,
             deblock=p.deblock,
             deblock_alpha=p.deblock_alpha, deblock_beta=p.deblock_beta,
             fps_num=p.fps_num, fps_den=p.fps_den,

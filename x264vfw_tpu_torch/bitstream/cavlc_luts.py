@@ -1,6 +1,6 @@
 """16-bit-peek decode LUTs for the native CAVLC slice parser.
 
-The C parser (tools/decparse/cavlc_parse.c) decodes every VLC symbol with
+The C parser (csrc/host/cavlc_parse.c) decodes every VLC symbol with
 one table lookup on the next 16 bits.  The LUTs are built here from the
 same spec tables the Python coder uses (bitstream/cavlc_tables.py — the
 single source of truth), and passed to C as one contiguous uint16 buffer:

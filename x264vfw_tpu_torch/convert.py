@@ -38,17 +38,24 @@ class EncoderState:
     last_idr: int = 0     # display index of the last IDR
     poc_base: int = 0     # display index the POC counts from (the batched
     #                       session sets it at each IDR)
+    wp_prev: np.ndarray | None = None   # weight analysis: the pooled
+    #                                     previous input luma (_wp_prev)
+    scenecut_prev: np.ndarray | None = None   # SceneCut.prev
+    scenecut_ema: float | None = None         # SceneCut._ema
 
 
 def state_from_numpy(ref_y: np.ndarray, ref_u: np.ndarray, ref_v: np.ndarray,
                      frame_idx: int, poc: int = 0, frame_num: int | None = None,
                      idr_id: int = 1, last_idr: int = 0, poc_base: int = 0,
+                     wp_prev=None, scenecut_prev=None, scenecut_ema=None,
                      device=None) -> EncoderState:
     """Decoded picture buffer + frame counters from numpy arrays.
 
     ref_* are the reconstructed reference planes at MB-multiple size, as
     the JAX encoder keeps them (TpuEncoder.ref).  frame_num defaults to
-    frame_idx - last_idr (frames since the IDR, no B frames)."""
+    frame_idx - last_idr (frames since the IDR, no B frames).  wp_prev is
+    the JAX encoder's _wp_prev (--weightp), scenecut_prev and
+    scenecut_ema its scene-cut detector's prev and _ema (--scenecut)."""
     dev = resolve_device(device)
     ref = tuple(torch.as_tensor(np.asarray(p, np.int32), device=dev)
                 for p in (ref_y, ref_u, ref_v))
@@ -60,4 +67,8 @@ def state_from_numpy(ref_y: np.ndarray, ref_u: np.ndarray, ref_v: np.ndarray,
     return EncoderState(
         ref=ref, frame_idx=frame_idx,
         frame_num=frame_idx - last_idr if frame_num is None else frame_num,
-        idr_id=idr_id, poc=poc, last_idr=last_idr, poc_base=poc_base)
+        idr_id=idr_id, poc=poc, last_idr=last_idr, poc_base=poc_base,
+        wp_prev=None if wp_prev is None else np.asarray(wp_prev, np.float32),
+        scenecut_prev=(None if scenecut_prev is None
+                       else np.asarray(scenecut_prev, np.float32)),
+        scenecut_ema=None if scenecut_ema is None else float(scenecut_ema))

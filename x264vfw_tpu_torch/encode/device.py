@@ -2,15 +2,17 @@
 integer-pel motion search + motion compensation, and the I / P cores.
 
 Port of x264vfw_tpu/encode/device.py for the slices this package carries:
-I16x16 with chroma intra; P with one reference, either P16x16 (found by
-the hierarchical or the exhaustive search, then optionally refined to
-half or quarter pel) or the 8x8-grid partitions with half/quarter-pel
-refinement (encode/inter_partition.py); and the in-loop deblock of the
-reconstruction.  Every function is batched over macroblocks; sample
-arithmetic is int32 (int16 where the JAX code keeps pixel data in int16,
-with the same values).  The outputs are the same syntax tensors (levels
-in zigzag + block coding order, CBPs, MVs, modes) and recon planes, bit
-for bit.
+I16x16 with chroma intra, and with --partitions i4x4 the I_NxN candidate
+(encode/intra4x4.py); P with one reference, either P16x16 (found by the
+hierarchical or the exhaustive search, then optionally refined to half
+or quarter pel) or the 8x8-grid partitions with half/quarter-pel
+refinement (encode/inter_partition.py), with per-MB variance AQ, the
+per-MB 4x4-vs-8x8 transform decision and explicit weighted prediction;
+and the in-loop deblock of the reconstruction.  Every function is batched
+over macroblocks; sample arithmetic is int32 (int16 where the JAX code
+keeps pixel data in int16, with the same values).  The outputs are the
+same syntax tensors (levels in zigzag + block coding order, CBPs, MVs,
+modes, per-MB QPs) and recon planes, bit for bit.
 
 Where the JAX code aligns the reference with masked static shifts (a TPU
 cannot gather), the port gathers: each MB's prediction at its own motion
@@ -24,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..bitstream import cavlc_dev as cd
 from ..ops import transform as tj
 from ..ops.kernels.sad import sad16_argmin
 from ..ops.tables import ZIGZAG_4x4
@@ -101,6 +104,44 @@ def _edge_pad(plane: torch.Tensor, p: int) -> torch.Tensor:
 def _per_pixel(field: torch.Tensor, bs: int) -> torch.Tensor:
     """(mbh, mbw) per-MB values -> (mbh*bs, mbw*bs) per pixel."""
     return field.repeat_interleave(bs, 0).repeat_interleave(bs, 1)
+
+
+def aq_qp_map(src_y: torch.Tensor, qp: int,
+              aq_strength: float) -> torch.Tensor:
+    """Variance adaptive quantisation (--aq-mode 1 / --aq-strength): busy
+    MBs get a higher QP, flat MBs a lower one, normalised to the frame's
+    mean energy: qp + clip(round(strength * 1.2 * (e - mean(e))), -6, 6)
+    with e = log2(var + 1), clipped to [1, 51].  Returns (n,) int32.
+
+    The JAX package computes var, log2 and the frame mean in float32 in
+    XLA's reduction order.  Here each MB's variance is exact (var * 65536
+    = 256 * sum(x^2) - sum(x)^2 in int64 on the device), and the rest runs
+    in float64 in numpy on the host (one pull of n integers), so the map
+    is the same on every device; it differs from the JAX package's only
+    where a float32 rounding moves a value across a .5 step of round()."""
+    mbs = mbize(src_y.to(torch.int64))
+    s1 = mbs.sum(dim=(1, 2))
+    num = (256 * (mbs * mbs).sum(dim=(1, 2)) - s1 * s1).cpu().numpy()
+    energy = np.log2(num / 65536.0 + 1.0)
+    adj = aq_strength * 1.2 * (energy - energy.mean())
+    adj = np.clip(np.round(adj), -6, 6).astype(np.int32)
+    return torch.as_tensor(np.clip(qp + adj, 1, 51).astype(np.int32),
+                           device=src_y.device)
+
+
+def realized_qp_chain(qp_mb: torch.Tensor, coded: torch.Tensor,
+                      slice_qp: int):
+    """Decoder-visible per-MB QP: only MBs that signal mb_qp_delta (coded
+    residual) can move QP; the others inherit the previous MB's QP
+    (§7.4.5).  Returns (qp_real (n,), qp_delta (n,)) int32; the delta is
+    meaningful only where coded."""
+    n = qp_mb.shape[0]
+    i = torch.arange(n, dtype=torch.int32, device=qp_mb.device)
+    idx = torch.cummax(torch.where(coded, i, -1), dim=0).values
+    qp_real = torch.where(idx >= 0, qp_mb[idx.clamp(min=0).long()],
+                          slice_qp).to(torch.int32)
+    prev = torch.cat([qp_real.new_full((1,), slice_qp), qp_real[:-1]])
+    return qp_real, torch.where(coded, qp_mb - prev, 0).to(torch.int32)
 
 
 # --------------------------------------------------------------------------
@@ -430,14 +471,40 @@ def _decimate_score(levels: torch.Tensor) -> torch.Tensor:
     return torch.where(big, 9, score)
 
 
-def _luma_residual_pipeline(src_mbs, pred_mbs, qp: int, intra: bool,
-                            decimate: bool = False):
+def _clz32(x: torch.Tensor) -> torch.Tensor:
+    """Leading zeros of positive int32 values, exact (the JAX package
+    takes them from a float32 log2, which is exact at every |level| an
+    8-bit residual can give)."""
+    return 32 - cd.bit_length(x)
+
+
+def _lam2_table() -> np.ndarray:
+    """The t8 decision's lambda for qp 0..51: max(1, round(0.9 *
+    2^((qp - 12) / 3))) in float32, as the JAX package computes it."""
+    q = np.arange(52, dtype=np.float32)
+    x = np.float32(0.9) * np.exp2((q - np.float32(12.0)) / np.float32(3.0))
+    return np.maximum(1, np.round(x.astype(np.float32))).astype(np.int32)
+
+
+LAM2 = _lam2_table()
+
+
+def _luma_residual_pipeline(src_mbs, pred_mbs, qp, intra: bool,
+                            decimate: bool = False, t8: bool = False):
     """fdct + quant + zigzag and the decoder-exact recon residual.
 
-    decimate (inter only): zero a whole MB's luma residual when its summed
-    decimate score is < 6 (x264's default dct-decimate).
-    Returns (levels_zz (n, 16, 16), recon_res (n, 16, 16))."""
-    blocks = mb_to_blocks(src_mbs - pred_mbs)
+    qp: int, or (n, 1) per-MB QPs.  decimate (inter only): zero a whole
+    MB's luma residual when its summed decimate score is < 6 (x264's
+    default dct-decimate).  t8 (inter only): also evaluate the 8x8
+    transform per MB (--8x8dct) and pick 4x4 or 8x8 by SSD + lambda *
+    rate; the 8x8 levels come in CAVLC's interleaved-4x4 layout (§8.5.6:
+    sub-block b of 8x8 block k sits in 4x4 slot 4k+b and carries 8x8
+    scan positions 4j+b), so every consumer (slots, nC, CBP) reads them as
+    it reads 4x4 levels.
+    Returns (levels_zz (n, 16, 16), recon_res (n, 16, 16), t8_flag (n,)
+    bool or None)."""
+    resid = src_mbs - pred_mbs
+    blocks = mb_to_blocks(resid)
     q = tj.quant4x4(tj.fdct4x4(blocks), qp, intra=intra)
     levels = zigzag16(q)                            # (n, 16, 16)
     if decimate and not intra:
@@ -445,26 +512,70 @@ def _luma_residual_pipeline(src_mbs, pred_mbs, qp: int, intra: bool,
         levels = levels * keep[:, None, None]
         q = q * keep[:, None, None, None]
     res = blocks_to_mb(tj.idct4x4_core(tj.dequant4x4(q, qp)))
-    return levels, res
+    if not t8 or intra:
+        return levels, res, None
+
+    # ---- the 8x8 transform candidate ----
+    n = resid.shape[0]
+    # (n, 4, 8, 8) quadrant blocks in cbp order (TL, TR, BL, BR)
+    b8 = resid.reshape(n, 2, 8, 2, 8).permute(0, 1, 3, 2, 4) \
+        .reshape(n, 4, 8, 8)
+    q8 = tj.quant8x8(tj.fdct8x8(b8), qp, intra=False)
+    lv8 = tj.zigzag8x8_scan(q8).reshape(n, 4, 16, 4).permute(0, 1, 3, 2) \
+        .reshape(n, 16, 16)
+    if decimate:
+        keep8 = _decimate_score(lv8).sum(dim=-1) >= 6
+        lv8 = lv8 * keep8[:, None, None]
+        q8 = q8 * keep8[:, None, None, None]
+    res8 = tj.idct8x8_core(tj.dequant8x8(q8, qp))
+    res8_mb = res8.reshape(n, 2, 2, 8, 8).permute(0, 1, 3, 2, 4) \
+        .reshape(n, 16, 16)
+
+    def cost(levels_, res_):
+        """SSD against the true residual, and a rate proxy in bits."""
+        ssd = ((res_ - resid) ** 2).sum(dim=(-1, -2), dtype=torch.int32)
+        a = levels_.abs()
+        bits = (2 * (a > 0).sum(dim=(-1, -2), dtype=torch.int32)
+                + (31 - _clz32(a.clamp(min=1))).sum(dim=(-1, -2),
+                                                    dtype=torch.int32))
+        return ssd, bits
+
+    if isinstance(qp, torch.Tensor):
+        lam2 = torch.as_tensor(LAM2, device=qp.device)[qp.long()].reshape(n)
+    else:
+        lam2 = int(LAM2[qp])
+    ssd4, bits4 = cost(levels, res)
+    ssd8, bits8 = cost(lv8, res8_mb)
+    flag8 = (ssd8 + lam2 * bits8) < (ssd4 + lam2 * bits4)
+    levels = torch.where(flag8[:, None, None], lv8, levels)
+    res = torch.where(flag8[:, None, None], res8_mb, res)
+    return levels, res, flag8
 
 
-def _chroma_residual_pipeline(src_c8, pred_c8, qpc: int, intra: bool):
-    """Chroma 8x8: DC Hadamard + AC.  Returns (dc_levels (n, 2, 2),
-    ac_levels (n, 4, 15))."""
+def _chroma_residual_pipeline(src_c8, pred_c8, qpc, intra: bool,
+                              qp_dc=None):
+    """Chroma 8x8: DC Hadamard + AC.  qpc: int or (n, 1) per MB; qp_dc:
+    int or (n,) for the DC path (default qpc).  Returns (dc_levels
+    (n, 2, 2), ac_levels (n, 4, 15))."""
+    if qp_dc is None:
+        qp_dc = qpc
     coef = tj.fdct4x4(c8_to_blocks(src_c8 - pred_c8))       # (n, 4, 4, 4)
     dc = coef[:, :, 0, 0].reshape(-1, 2, 2)
-    dc_lv = tj.chroma_dc_fwd_quant(dc, qpc, intra=intra)
+    dc_lv = tj.chroma_dc_fwd_quant(dc, qp_dc, intra=intra)
     q = tj.quant4x4(coef, qpc, intra=intra)
     q[:, :, 0, 0] = 0
     return dc_lv, zigzag16(q)[:, :, 1:]
 
 
-def _chroma_recon(pred_c8, dc_lv, ac_lv, qpc: int, use_dc, use_ac):
-    """Decoder-exact chroma recon with cbp masking.  use_dc/use_ac: (n,)."""
+def _chroma_recon(pred_c8, dc_lv, ac_lv, qpc, use_dc, use_ac, qp_dc=None):
+    """Decoder-exact chroma recon with cbp masking.  use_dc/use_ac: (n,);
+    qpc/qp_dc as in _chroma_residual_pipeline."""
+    if qp_dc is None:
+        qp_dc = qpc
     n = pred_c8.shape[0]
     dc_lv = dc_lv * use_dc[:, None, None]
     ac_lv = ac_lv * use_ac[:, None, None]
-    dc_rec = tj.chroma_dc_dequant(dc_lv, qpc)       # (n, 2, 2)
+    dc_rec = tj.chroma_dc_dequant(dc_lv, qp_dc)     # (n, 2, 2)
     full = torch.cat([ac_lv.new_zeros(n, 4, 1), ac_lv], dim=-1)
     d = tj.dequant4x4(tj.zigzag_unscan(full), qpc)
     d[:, :, 0, 0] = dc_rec.reshape(n, 4)            # raster sb order
@@ -475,15 +586,30 @@ def _chroma_recon(pred_c8, dc_lv, ac_lv, qpc: int, use_dc, use_ac):
 def encode_p_frame_core(src_y, src_u, src_v, ref_y, ref_u, ref_v,
                         qp: int, qpc: int, rng: int = 8, subpel: int = 0,
                         me_backend: str = "auto", decimate: bool = True,
-                        partitions: bool = False):
+                        partitions: bool = False, aq_strength: float = 0.0,
+                        qpc_offset: int = 0, wp=None, dct8x8: bool = False):
     """P-frame encode, one reference: P16x16, or with `partitions` the
     16x16/16x8/8x16/8x8 decision on the 8x8 grid (adds 'part' (n,) and
     'mv8' (2mbh, 2mbw, 2) to the outputs).  All planes int32 at MB-
-    multiple size.  Returns syntax tensors + recon planes (pre-deblock)."""
+    multiple size.  Returns syntax tensors + recon planes (pre-deblock).
+
+    aq_strength > 0: per-MB variance AQ (aq_qp_map); quant and dequant run
+    with the per-MB QPs and the outputs carry 'qp_real' and 'qp_delta'
+    (the mb_qp_delta chain, §7.4.5).  wp, optional (w, o) ints: explicit
+    weighted prediction of luma (§8.4.2.3, denominator 6) applied to the
+    interpolated prediction, in the decoder's order.  dct8x8: the per-MB
+    4x4-vs-8x8 transform decision (adds 't8' (n,) bool)."""
     H, W = src_y.shape
     mbh, mbw = H // 16, W // 16
     n = mbh * mbw
     src_mbs = mbize(src_y)
+    aq = float(aq_strength) > 0.0
+    if aq:
+        qp_mb = aq_qp_map(src_y, qp, float(aq_strength))
+        qpc_mb = tj.chroma_qp(qp_mb, qpc_offset)
+        qp_l, qp_c, qp_cdc = qp_mb[:, None], qpc_mb[:, None], qpc_mb
+    else:
+        qp_l, qp_c, qp_cdc = qp, qpc, qpc
     part = mv8 = None
     if partitions:
         from .inter_partition import partition_search_and_mc
@@ -496,10 +622,13 @@ def encode_p_frame_core(src_y, src_u, src_v, ref_y, ref_u, ref_v,
         mv_q4, pred_y_pl, pred_u_pl, pred_v_pl = _motion_search_and_mc(
             src_y, src_u, src_v, ref_y, ref_u, ref_v, rng, subpel=subpel,
             me_backend=me_backend)
+    if wp is not None:
+        wp_w, wp_o = wp
+        pred_y_pl = (((pred_y_pl * wp_w + 32) >> 6) + wp_o).clamp(0, 255)
 
     pred = mbize(pred_y_pl)
-    levels, recon_res = _luma_residual_pipeline(
-        src_mbs, pred, qp, intra=False, decimate=decimate)
+    levels, recon_res, t8_flag = _luma_residual_pipeline(
+        src_mbs, pred, qp_l, intra=False, decimate=decimate, t8=dct8x8)
 
     # cbp luma per 8x8 quadrant (block coding order: blocks q*4..q*4+3)
     cbp_q = (levels != 0).any(dim=-1).reshape(n, 4, 4).any(dim=-1)
@@ -513,10 +642,10 @@ def encode_p_frame_core(src_y, src_u, src_v, ref_y, ref_u, ref_v,
 
     pred_u = mbize(pred_u_pl, 8)
     pred_v = mbize(pred_v_pl, 8)
-    dc_u, ac_u = _chroma_residual_pipeline(mbize(src_u, 8), pred_u, qpc,
-                                           False)
-    dc_v, ac_v = _chroma_residual_pipeline(mbize(src_v, 8), pred_v, qpc,
-                                           False)
+    dc_u, ac_u = _chroma_residual_pipeline(mbize(src_u, 8), pred_u, qp_c,
+                                           False, qp_dc=qp_cdc)
+    dc_v, ac_v = _chroma_residual_pipeline(mbize(src_v, 8), pred_v, qp_c,
+                                           False, qp_dc=qp_cdc)
     has_ac = (ac_u != 0).any(dim=2).any(dim=1) | \
         (ac_v != 0).any(dim=2).any(dim=1)
     has_dc = (dc_u != 0).any(dim=2).any(dim=1) | \
@@ -525,8 +654,10 @@ def encode_p_frame_core(src_y, src_u, src_v, ref_y, ref_u, ref_v,
         torch.int32)
     use_dc = cbp_chroma >= 1
     use_ac = cbp_chroma == 2
-    rec_u = _chroma_recon(pred_u, dc_u, ac_u, qpc, use_dc, use_ac)
-    rec_v = _chroma_recon(pred_v, dc_v, ac_v, qpc, use_dc, use_ac)
+    rec_u = _chroma_recon(pred_u, dc_u, ac_u, qp_c, use_dc, use_ac,
+                          qp_dc=qp_cdc)
+    rec_v = _chroma_recon(pred_v, dc_v, ac_v, qp_c, use_dc, use_ac,
+                          qp_dc=qp_cdc)
     out = {
         "mv": mv_q4.reshape(n, 2),      # (n, 2) quarter-pel
         "levels": levels,               # (n, 16, 16) zigzag, block order
@@ -541,6 +672,11 @@ def encode_p_frame_core(src_y, src_u, src_v, ref_y, ref_u, ref_v,
     if part is not None:
         out["part"] = part.reshape(n)
         out["mv8"] = mv8
+    if t8_flag is not None:
+        out["t8"] = t8_flag
+    if aq:
+        coded = (cbp_luma != 0) | (cbp_chroma != 0)
+        out["qp_real"], out["qp_delta"] = realized_qp_chain(qp_mb, coded, qp)
     return out
 
 
@@ -548,14 +684,16 @@ def encode_p_frame_core(src_y, src_u, src_v, ref_y, ref_u, ref_v,
 # I-frame pipeline
 # --------------------------------------------------------------------------
 
-def encode_i_frame_core(src_y, src_u, src_v, qp: int, qpc: int):
+def encode_i_frame_core(src_y, src_u, src_v, qp: int, qpc: int,
+                        i4x4: bool = False):
     """I-frame encode: anti-diagonal wavefront with full per-MB
     Intra_16x16 (V/H/DC/Plane) and chroma (DC/H/V/Plane) mode decision
-    under exact reconstruction feedback (see intra_wavefront).
+    under exact reconstruction feedback (see intra_wavefront).  i4x4 adds
+    the 9-mode I_NxN candidate per MB (slope-2 wavefront, intra4x4).
 
     Returns syntax tensors + recon planes + per-MB 'i16_mode'/'cmode'."""
     from .intra_wavefront import encode_i_frame_core_wf
-    return encode_i_frame_core_wf(src_y, src_u, src_v, qp, qpc)
+    return encode_i_frame_core_wf(src_y, src_u, src_v, qp, qpc, i4x4)
 
 
 def _luma_residual_pipeline_i16(src_mbs, pred_mbs, qp: int):
@@ -622,11 +760,14 @@ def _finish_intra_mb(sy, pred_y, levels, res_mb, su, pu, sv, pv,
 def loop_filter_maps(out, qp: int, mbh: int, mbw: int, intra: bool,
                      offA: int = 0, offB: int = 0, qpc_offset: int = 0):
     """The deblock edge maps of a frame from the encoder's own syntax
-    tensors: per-4x4 total_coeff of the cbp-masked levels, the motion
-    field broadcast to 4x4 blocks (mv8 where the frame has partitions), an
-    all-intra or all-inter frame, one reference, a constant QP.  offA/offB
-    are the full (2 * div2) slice offsets.  Returns (mapsV, mapsH, mapsVc,
-    mapsHc) int32, contiguous."""
+    tensors: per-4x4 total_coeff of the cbp-masked levels (an 8x8-
+    transformed MB's quadrant count on each of its four 4x4 blocks), the
+    motion field broadcast to 4x4 blocks (mv8 where the frame has
+    partitions), an all-intra or all-inter frame, one reference, the
+    decoder-visible per-MB QP ('qp_real' under AQ, else qp), and no
+    internal 4x4 edges in 8x8-transformed MBs.  offA/offB are the full
+    (2 * div2) slice offsets.  Returns (mapsV, mapsH, mapsVc, mapsHc)
+    int32, contiguous."""
     from ..ops.deblock import build_maps
     dev = out["recon_y"].device
     rep = torch.repeat_interleave
@@ -638,6 +779,11 @@ def loop_filter_maps(out, qp: int, mbh: int, mbw: int, intra: bool,
                  >> (torch.arange(16, device=dev) // 4)) & 1).bool()
         lv = out["levels"] * quad[:, :, None]
         tc_blk = (lv != 0).sum(-1, dtype=torch.int32)   # (n, 16) block order
+        if "t8" in out:
+            # bS sees the 8x8 block's coded status on each 4x4 it covers
+            tc8 = tc_blk.reshape(-1, 4, 4).sum(-1, dtype=torch.int32) \
+                .repeat_interleave(4, dim=1)
+            tc_blk = torch.where(out["t8"][:, None], tc8, tc_blk)
         raster = tc_blk.index_select(1, _idx(_INV16, dev))
         tc4 = (raster.reshape(mbh, mbw, 4, 4).permute(0, 2, 1, 3)
                .reshape(4 * mbh, 4 * mbw))
@@ -647,9 +793,12 @@ def loop_filter_maps(out, qp: int, mbh: int, mbw: int, intra: bool,
             mv4 = rep(rep(out["mv"].reshape(mbh, mbw, 2), 4, 0), 4, 1)
     intra_map = torch.full((mbh, mbw), intra, dtype=torch.bool, device=dev)
     ref4 = torch.zeros(4 * mbh, 4 * mbw, dtype=torch.int32, device=dev)
-    qp_map = torch.full((mbh, mbw), qp, dtype=torch.int32, device=dev)
+    qp_map = (out["qp_real"].reshape(mbh, mbw) if "qp_real" in out
+              else torch.full((mbh, mbw), qp, dtype=torch.int32, device=dev))
+    t8_4 = (rep(rep(out["t8"].reshape(mbh, mbw), 4, 0), 4, 1)
+            if not intra and "t8" in out else None)
     maps = build_maps(intra_map, tc4, mv4, ref4, qp_map, offA, offB,
-                      qpc_offset)
+                      qpc_offset, t8_4=t8_4)
     return tuple(m.contiguous() for m in maps)
 
 

@@ -1,18 +1,20 @@
 """Device-side slice finalisation: syntax tensors -> slots -> packed bytes.
 
-Port of the I and one-reference P parts (P16x16 and the 8x8-grid
-partitions) of x264vfw_tpu/encode/device_finalize.py, with the in-loop
-deblock of the reference planes, and of its batched P run
-(encode_pgop_slots, pack_batch) without B frames or MB-tree.
+Port of the I (I16x16 and I_NxN) and one-reference P parts (P16x16 and
+the 8x8-grid partitions, with transform_size_8x8_flag and mb_qp_delta)
+of x264vfw_tpu/encode/device_finalize.py, with the in-loop deblock of the
+reference planes, and of its batched P run (encode_pgop_slots,
+pack_batch) without B frames, MB-tree, AQ or the 8x8 transform.
 Everything between the per-MB compute and the NAL wrapper runs on the
 device: MV prediction, skip-run derivation, nC context maps, CAVLC slot
 generation (bitstream/cavlc_dev) and bit packing (device_pack).  The host
 receives the packed payload bytes, about the size of the bitstream.
 
-Slot layout differs from the JAX code only in slots that are always
-zero-length in the ported configurations (I_NxN modes and residual,
-ref_idx, transform_size_8x8_flag): the packer drops zero-length slots, so
-the packed bytes are the same.
+I slices have the JAX code's slot layout.  P slices differ from it only
+in slots that are always zero-length where the port leaves them out:
+ref_idx (one reference) and, without --8x8dct,
+transform_size_8x8_flag.  The packer drops zero-length slots, so the
+packed bytes are the same.
 
 Slice-header bits are assembled on the host and passed in as slot arrays.
 """
@@ -169,18 +171,16 @@ def _chroma_slots(out, n, mbh, mbw):
 
 def _tail(hdr_lens, mb_lens, trailing=None):
     """Trailing mb_skip_run (P) + rbsp_trailing_bits as slot arrays."""
-    dev = mb_lens.device
     body_bits = hdr_lens.sum(dtype=torch.int64) + mb_lens.sum(dtype=torch.int64)
-    tv = torch.zeros(1, dtype=torch.int64, device=dev)
-    tl = torch.zeros(1, dtype=torch.int32, device=dev)
+    tv, tl = [], []
     if trailing is not None:
         v, ln = cd.ue_codes_dev(trailing.clamp(min=0))
-        tv = v.reshape(1)
-        tl = torch.where(trailing > 0, ln, 0).reshape(1)
-        body_bits = body_bits + tl[0]
+        tv.append(v.reshape(1))
+        tl.append(torch.where(trailing > 0, ln, 0).reshape(1))
+        body_bits = body_bits + tl[0][0]
     pad = (-(body_bits + 1)) % 8
-    return (torch.cat([tv, (torch.ones_like(pad) << pad).reshape(1)]),
-            torch.cat([tl, (1 + pad).reshape(1).to(torch.int32)]))
+    return (torch.cat(tv + [(torch.ones_like(pad) << pad).reshape(1)]),
+            torch.cat(tl + [(1 + pad).reshape(1).to(torch.int32)]))
 
 
 def _mb_header_p16(out, mbh: int, mbw: int, cbp):
@@ -228,9 +228,13 @@ def _mb_header_parts(out, mbh: int, mbw: int, cbp):
     return torch.stack(vals, dim=1), torch.stack(lens, dim=1), skip
 
 
-def _finalize_p_core(out, hdr_vals, hdr_lens, mbh: int, mbw: int):
+def _finalize_p_core(out, hdr_vals, hdr_lens, mbh: int, mbw: int,
+                     t8_mode: bool = False):
     """P-slice syntax tensors (one reference; P16x16, or the 8x8-grid
-    partitions when `out` has 'part') -> slot rows."""
+    partitions when `out` has 'part') -> slot rows.  t8_mode: the PPS
+    enables the 8x8 transform, so every MB with luma cbp codes
+    transform_size_8x8_flag ('t8', 0 where `out` has none); 'qp_delta' in
+    `out` gives the MBs with a coded residual their se(mb_qp_delta)."""
     n = mbh * mbw
     dev = out["mv"].device
     cbp_luma = out["cbp_luma"]
@@ -253,15 +257,25 @@ def _finalize_p_core(out, hdr_vals, hdr_lens, mbh: int, mbw: int):
     vlu, llu = cd.encode_blocks(levels.reshape(-1, 16), nc_l.reshape(-1), 16)
     llu = llu.reshape(n, 16, S) * quad_coded[:, :, None]
 
-    # header slots: [mb_skip_run, <type and mvds>, cbp, qp_delta]
+    # header slots: [mb_skip_run, <type and mvds>, cbp, (t8), qp_delta]
     rv, rl = cd.ue_codes_dev(runs)
     code = torch.as_tensor(CBP_TO_CODE[0], device=dev)[cbp.long()]
     bv, bl = cd.ue_codes_dev(code)
-    one = torch.ones(n, dtype=torch.int64, device=dev)
-    hv = torch.cat([rv[:, None], tv, torch.stack([bv, one], dim=1)], dim=1)
-    hl = torch.cat([rl[:, None], tl,
-                    torch.stack([bl, (cbp != 0).int()], dim=1)],  # se(0)
-                   dim=1)
+    vals, lens = [rv[:, None], tv, bv[:, None]], [rl[:, None], tl,
+                                                  bl[:, None]]
+    if t8_mode or "t8" in out:
+        # transform_size_8x8_flag (§7.3.5), coded when luma cbp != 0
+        t8 = out.get("t8", torch.zeros(n, dtype=torch.bool, device=dev))
+        vals.append(t8.to(torch.int64)[:, None])
+        lens.append((cbp_luma != 0).int()[:, None])
+    if "qp_delta" in out:                       # per-MB AQ
+        qv, ql = cd.se_codes_dev(out["qp_delta"])
+    else:                                       # se(0)
+        qv, ql = torch.ones(n, dtype=torch.int64, device=dev), 1
+    vals.append(qv[:, None])
+    lens.append((ql * (cbp != 0)).int()[:, None])
+    hv = torch.cat(vals, dim=1)
+    hl = torch.cat(lens, dim=1)
 
     cv, cl = _chroma_slots(out, n, mbh, mbw)
     mb_vals = torch.cat([hv, vlu.reshape(n, -1), cv], dim=1)
@@ -272,29 +286,73 @@ def _finalize_p_core(out, hdr_vals, hdr_lens, mbh: int, mbw: int):
                        tail_vals, tail_lens)
 
 
-def _finalize_i_core(out, hdr_vals, hdr_lens, mbh: int, mbw: int):
-    """I-slice syntax tensors (all I16x16) -> slot rows."""
+def _finalize_i_core(out, hdr_vals, hdr_lens, mbh: int, mbw: int,
+                     t8_mode: bool = False):
+    """I-slice syntax tensors -> slot rows, mixed I16x16 / I_NxN (all
+    I16x16 when `out` has no 'use_i4'), in the JAX code's layout: header
+    [mb_type, transform_size_8x8_flag, 16 x intra 4x4 pred mode,
+    intra_chroma_pred_mode, coded_block_pattern, mb_qp_delta], then the
+    I16 DC and AC blocks, the I_NxN 16-coefficient blocks and chroma.
+    nC reads one total-coeff map over both MB types (§9.2.1: I_NxN
+    blocks count all 16 coefficients, I16 blocks their 15 AC ones).
+    t8_mode: the PPS enables the 8x8 transform, so I_NxN MBs code
+    transform_size_8x8_flag (0: no Intra 8x8)."""
     n = mbh * mbw
+    dev = out["dc"].device
+    if "use_i4" in out:
+        use_i4, levels4, cbp4 = out["use_i4"], out["levels4"], out["cbp_luma4"]
+        prev, rem = out["i4_prev"], out["i4_rem"]
+    else:
+        use_i4 = torch.zeros(n, dtype=torch.bool, device=dev)
+        levels4 = torch.zeros(n, 16, 16, dtype=torch.int32, device=dev)
+        cbp4 = torch.zeros(n, dtype=torch.int32, device=dev)
+        prev = torch.zeros(n, 16, dtype=torch.bool, device=dev)
+        rem = torch.zeros(n, 16, dtype=torch.int32, device=dev)
     cbp_luma_nz = out["cbp_luma_nz"]
     cbp_chroma = out["cbp_chroma"]
-    mb_type = 1 + out["i16_mode"] + 4 * cbp_chroma + 12 * cbp_luma_nz.int()
+    i16 = ~use_i4
+    mb_type = torch.where(use_i4, 0, 1 + out["i16_mode"] + 4 * cbp_chroma
+                          + 12 * cbp_luma_nz.int())
 
-    ac = out["ac"] * cbp_luma_nz[:, None, None]
-    nc_l = _nc_luma((ac != 0).sum(-1, dtype=torch.int32), mbh, mbw)
+    ac = out["ac"] * (cbp_luma_nz & i16)[:, None, None]
+    tc_blk = torch.where(use_i4[:, None],
+                         (levels4 != 0).sum(-1, dtype=torch.int32),
+                         (ac != 0).sum(-1, dtype=torch.int32))
+    nc_l = _nc_luma(tc_blk, mbh, mbw)
     vdc, ldc = cd.encode_blocks(out["dc"], nc_l[:, 0], 16)
+    ldc = ldc * i16[:, None]
     vac, lac = cd.encode_blocks(ac.reshape(-1, 15), nc_l.reshape(-1), 15)
-    lac = lac.reshape(n, -1) * cbp_luma_nz[:, None]
+    lac = lac.reshape(n, 16, S) * (cbp_luma_nz & i16)[:, None, None]
+    # I_NxN luma: 16-coefficient blocks, coded when the quadrant's cbp
+    # bit is set
+    vl4, ll4 = cd.encode_blocks(levels4.reshape(-1, 16), nc_l.reshape(-1),
+                                16)
+    quad4 = ((cbp4[:, None] >> (torch.arange(16, device=dev) // 4)) & 1) \
+        .bool()
+    ll4 = ll4.reshape(n, 16, S) * (use_i4[:, None] & quad4)[:, :, None]
 
-    # header slots: [mb_type, intra_chroma_pred_mode, qp_delta se(0)]
+    i4 = use_i4.int()
     tv, tl = cd.ue_codes_dev(mb_type)
+    pmv = torch.where(prev, 1, rem).to(torch.int64)
+    pml = torch.where(prev, 1, 4) * i4[:, None]
     cv_, cl_ = cd.ue_codes_dev(out["cmode"])
-    one = torch.ones(n, dtype=torch.int64, device=tv.device)
-    hv = torch.stack([tv, cv_, one], dim=1)
-    hl = torch.stack([tl, cl_, one.int()], dim=1)
+    code = torch.as_tensor(CBP_TO_CODE[1], device=dev)[
+        (cbp4 | (cbp_chroma << 4)).long()]
+    bv, bl = cd.ue_codes_dev(code)
+    qpd_on = (i16 | (cbp4 != 0) | (cbp_chroma != 0)).int()
+    zero = torch.zeros(n, dtype=torch.int64, device=dev)
+    one = torch.ones_like(zero)
+    hv = torch.cat([tv[:, None], zero[:, None], pmv,
+                    torch.stack([cv_, bv, one], dim=1)], dim=1)
+    hl = torch.cat([tl[:, None], (i4 if t8_mode else 0 * i4)[:, None],
+                    pml.int(), torch.stack([cl_, bl * i4, qpd_on], dim=1)],
+                   dim=1)
 
     cv, cl = _chroma_slots(out, n, mbh, mbw)
-    mb_vals = torch.cat([hv, vdc, vac.reshape(n, -1), cv], dim=1)
-    mb_lens = torch.cat([hl, ldc, lac, cl], dim=1)
+    mb_vals = torch.cat([hv, vdc, vac.reshape(n, -1), vl4.reshape(n, -1), cv],
+                        dim=1)
+    mb_lens = torch.cat([hl, ldc, lac.reshape(n, -1), ll4.reshape(n, -1), cl],
+                        dim=1)
     tail_vals, tail_lens = _tail(hdr_lens, mb_lens)
     return _stack_rows(hdr_vals, hdr_lens, mb_vals, mb_lens,
                        tail_vals, tail_lens)
@@ -320,16 +378,20 @@ def _maybe_deblock(out, qp: int, mbh: int, mbw: int, intra: bool,
 
 
 def encode_i_slots_fn(H: int, W: int, deblock: bool = False, dbA: int = 0,
-                      dbB: int = 0, qpc_offset: int = 0):
+                      dbB: int = 0, qpc_offset: int = 0, i4x4: bool = False,
+                      dct8x8: bool = False):
     """The fused I-frame phase 1 for a geometry: unpack the uint8 frame ->
-    I encode -> slot rows, and the (deblocked when `deblock`) recon.  The
-    returned function gives (slot_vals, slot_lens, recon_y, recon_u,
-    recon_v)."""
+    I encode (with the I_NxN candidate when i4x4) -> slot rows, and the
+    (deblocked when `deblock`) recon.  dct8x8: the PPS enables the 8x8
+    transform (I_NxN MBs code transform_size_8x8_flag = 0).  The returned
+    function gives (slot_vals, slot_lens, recon_y, recon_u, recon_v)."""
     from .device import encode_i_frame_core
 
     def fn(src_yuv, qp: int, qpc: int, hdr_vals, hdr_lens):
-        out = encode_i_frame_core(*_unpack_src(src_yuv, H, W), qp, qpc)
-        v, l = _finalize_i_core(out, hdr_vals, hdr_lens, H // 16, W // 16)
+        out = encode_i_frame_core(*_unpack_src(src_yuv, H, W), qp, qpc,
+                                  i4x4)
+        v, l = _finalize_i_core(out, hdr_vals, hdr_lens, H // 16, W // 16,
+                                t8_mode=dct8x8)
         return (v, l, *_maybe_deblock(out, qp, H // 16, W // 16, True,
                                       deblock, dbA, dbB, qpc_offset))
 
@@ -340,17 +402,22 @@ def encode_p_slots(src_yuv, ref_y, ref_u, ref_v, qp: int, qpc: int,
                    hdr_vals, hdr_lens, rng: int, subpel: int = 0,
                    me_backend: str = "auto", deblock: bool = False,
                    dbA: int = 0, dbB: int = 0, qpc_offset: int = 0,
-                   partitions: bool = False):
-    """Fused P-frame phase 1: unpack the uint8 frame -> P encode -> slot
-    rows, and the (deblocked when `deblock`) recon.  Returns (slot_vals,
-    slot_lens, recon_y, recon_u, recon_v, out): `out` holds the syntax
-    tensors, among them 'mv' and, with partitions, 'part' and 'mv8'."""
+                   partitions: bool = False, aq_strength: float = 0.0,
+                   wp=None, dct8x8: bool = False):
+    """Fused P-frame phase 1: unpack the uint8 frame -> P encode (with AQ,
+    weighted prediction and the 8x8 transform decision when asked) ->
+    slot rows, and the (deblocked when `deblock`) recon.  Returns
+    (slot_vals, slot_lens, recon_y, recon_u, recon_v, out): `out` holds
+    the syntax tensors, among them 'mv' and, with partitions, 'part' and
+    'mv8'."""
     from .device import encode_p_frame_core
     H, W = ref_y.shape
     out = encode_p_frame_core(*_unpack_src(src_yuv, H, W), ref_y, ref_u,
                               ref_v, qp, qpc, rng, subpel, me_backend,
-                              partitions=partitions)
-    v, l = _finalize_p_core(out, hdr_vals, hdr_lens, H // 16, W // 16)
+                              partitions=partitions, aq_strength=aq_strength,
+                              qpc_offset=qpc_offset, wp=wp, dct8x8=dct8x8)
+    v, l = _finalize_p_core(out, hdr_vals, hdr_lens, H // 16, W // 16,
+                            t8_mode=dct8x8)
     return (v, l, *_maybe_deblock(out, qp, H // 16, W // 16, False, deblock,
                                   dbA, dbB, qpc_offset), out)
 

@@ -1,8 +1,9 @@
 """Wavefront I-frame encode with per-MB intra mode decision (PyTorch).
 
-Port of x264vfw_tpu/encode/intra_wavefront.py (I16x16 part): full
-Intra_16x16 mode decision (V/H/DC/Plane, §8.3.3) and intra chroma mode
-decision (DC/H/V/Plane, §8.3.4) under exact reconstruction feedback.
+Port of x264vfw_tpu/encode/intra_wavefront.py: full Intra_16x16 mode
+decision (V/H/DC/Plane, §8.3.3) and intra chroma mode decision
+(DC/H/V/Plane, §8.3.4) under exact reconstruction feedback, and with
+i4x4 the 9-mode I_NxN candidate of every MB (encode/intra4x4.py).
 
 Intra prediction of MB (y, x) needs the reconstructed bottom row of
 (y-1, x), the right column of (y, x-1) and the corner pixel of
@@ -15,8 +16,14 @@ border = right column emitted at step d-1 by slot y; corner = bottom row
 at step d-2, slot y-1.  Inputs and outputs move between raster and
 (step, slot) order with the skew transforms of ops/skew.py.
 
+I4x4 blocks also read the bottom row of the MB above-right, so with
+i4x4 the wavefront runs at slope 2: MB (y, x) at step d = 2y + x, in
+2(mbh - 1) + mbw steps, and the borders come from steps d-1 (above-right),
+d-2 (top) and d-3 (corner).
+
 Mode decisions use SATD (4x4 Hadamard) + a small lambda-weighted rate
-bias for the chroma mode's ue() length, as the JAX code does.
+bias for the chroma mode's ue() length, as the JAX code does; an MB takes
+I_NxN when its I4x4 cost + lam * 7 is below its best I16 cost + lam * 9.
 """
 
 from __future__ import annotations
@@ -130,22 +137,28 @@ def _select(sel, cands):
     return out
 
 
-def encode_i_frame_core_wf(src_y, src_u, src_v, qp: int, qpc: int):
+def encode_i_frame_core_wf(src_y, src_u, src_v, qp: int, qpc: int,
+                           i4x4: bool = False):
     """I-frame encode with full I16 + chroma mode decision.
 
     Returns the syntax-tensor dict plus 'i16_mode' (n,) in
     {0=V,1=H,2=DC,3=Plane} and 'cmode' (n,) in {0=DC,1=H,2=V,3=Plane}
-    (§7.4.5 numbering for both), and the recon planes."""
+    (§7.4.5 numbering for both), and the recon planes.  With i4x4 also
+    'use_i4' (n,) bool, 'i4_modes', 'i4_prev', 'i4_rem' (n, 16) and,
+    zeroed where an MB keeps I16, 'levels4' (n, 16, 16) and 'cbp_luma4'
+    (n,)."""
     from .device import (mbize, unmbize, _luma_residual_pipeline_i16,
                          _finish_intra_mb)
+    from .intra4x4 import encode_i4x4_batch
     H, W = src_y.shape
     mbh, mbw = H // 16, W // 16
-    steps = mbh - 1 + mbw
+    slope = 2 if i4x4 else 1
+    steps = slope * (mbh - 1) + mbw
     dev = src_y.device
 
-    sy = skew(mbize(src_y).reshape(mbh, mbw, 16, 16), steps)
-    su = skew(mbize(src_u, 8).reshape(mbh, mbw, 8, 8), steps)
-    sv = skew(mbize(src_v, 8).reshape(mbh, mbw, 8, 8), steps)
+    sy = skew(mbize(src_y).reshape(mbh, mbw, 16, 16), steps, slope)
+    su = skew(mbize(src_u, 8).reshape(mbh, mbw, 8, 8), steps, slope)
+    sv = skew(mbize(src_v, 8).reshape(mbh, mbw, 8, 8), steps, slope)
 
     ys_idx = torch.arange(mbh, dtype=torch.int32, device=dev)
     lam = satd_lambda(qp)
@@ -156,20 +169,23 @@ def encode_i_frame_core_wf(src_y, src_u, src_v, qp: int, qpc: int):
 
     z16 = torch.zeros(mbh, 16, dtype=torch.int32, device=dev)
     z8 = torch.zeros(mbh, 8, dtype=torch.int32, device=dev)
-    # bots_*[k] = bottom rows emitted at step d-1-k
-    bots_y, right_y = (z16, z16), z16
-    bots_u, right_u = (z8, z8), z8
-    bots_v, right_v = (z8, z8), z8
+    # bots_*[k] = bottom rows emitted at step d-1-k; the I4x4 border
+    # modes: mbots[k] emitted at step d-1-k, mright at step d-1
+    bots_y, right_y = (z16,) * (slope + 1), z16
+    bots_u, right_u = (z8,) * (slope + 1), z8
+    bots_v, right_v = (z8,) * (slope + 1), z8
+    zm = torch.full((mbh, 4), 2, dtype=torch.int32, device=dev)
+    mbots, mright = (zm, zm), zm
     outs = []
     for d in range(steps):
         smb_y, smb_u, smb_v = sy[d], su[d], sv[d]
-        x = d - ys_idx                                  # (mbh,)
+        x = d - slope * ys_idx                          # (mbh,)
         availT = ys_idx >= 1                            # top nbr (y-1, x)
         availL = x >= 1                                 # left nbr (y, x-1)
         availTL = availT & availL
 
-        top_y = shift_down(bots_y[0])                   # (mbh, 16)
-        tl_y = shift_down(bots_y[1])[:, 15]             # corner pixel
+        top_y = shift_down(bots_y[slope - 1])           # (mbh, 16)
+        tl_y = shift_down(bots_y[slope])[:, 15]         # corner pixel
         left_y = right_y
         # ---- luma I16 mode decision ----
         pV = top_y[:, None, :].expand(mbh, 16, 16)
@@ -185,11 +201,11 @@ def encode_i_frame_core_wf(src_y, src_u, src_v, qp: int, qpc: int):
         pred_y = _select(i16_mode, (pV, pH, pDC, pPL))
 
         # ---- chroma mode decision (joint over U+V) ----
-        top_u = shift_down(bots_u[0])
-        tl_u = shift_down(bots_u[1])[:, 7]
+        top_u = shift_down(bots_u[slope - 1])
+        tl_u = shift_down(bots_u[slope])[:, 7]
         left_u = right_u
-        top_v = shift_down(bots_v[0])
-        tl_v = shift_down(bots_v[1])[:, 7]
+        top_v = shift_down(bots_v[slope - 1])
+        tl_v = shift_down(bots_v[slope])[:, 7]
         left_v = right_v
         cand_u = (_chroma_dc_pred(top_u, left_u, availT, availL),
                   left_u[:, :, None].expand(mbh, 8, 8),
@@ -214,20 +230,41 @@ def encode_i_frame_core_wf(src_y, src_u, src_v, qp: int, qpc: int):
                                smb_u, pred_u, smb_v, pred_v, qp, qpc)
         out["i16_mode"] = i16_mode
         out["cmode"] = cmode
+
+        if i4x4:
+            availTR = availT & (x + 1 < mbw) & (x + 1 > 0)
+            tr4 = shift_down(bots_y[0])[:, :4]          # (y-1, x+1) bottom
+            i4 = encode_i4x4_batch(
+                smb_y, top_y, tr4, left_y, tl_y, shift_down(mbots[1]),
+                mright, availT, availL, availTR, qp, lam)
+            # MB type: total SATD + lambda * signalling bits (I16 ~ 9 bits
+            # of ue(mb_type); I_NxN ue(0) = 1 bit + ~6 of coded_block_pattern)
+            use_i4 = i4["cost"] + lam * 7 < costs.amin(dim=0) + lam * 9
+            u3 = use_i4[:, None, None]
+            out["recon_y"] = torch.where(u3, i4["recon"], out["recon_y"])
+            out["use_i4"] = use_i4
+            out["i4_modes"] = i4["modes"]
+            out["i4_prev"] = i4["prev"]
+            out["i4_rem"] = i4["rem"]
+            out["levels4"] = i4["levels"] * u3
+            out["cbp_luma4"] = i4["cbp_luma"] * use_i4
+            mbots = (torch.where(use_i4[:, None], i4["bot_modes"], 2),
+                     mbots[0])
+            mright = torch.where(use_i4[:, None], i4["right_modes"], 2)
         outs.append(out)
 
-        bots_y = (out["recon_y"][:, -1, :], bots_y[0])
+        bots_y = (out["recon_y"][:, -1, :],) + bots_y[:-1]
         right_y = out["recon_y"][:, :, -1]
-        bots_u = (out["recon_u"][:, -1, :], bots_u[0])
+        bots_u = (out["recon_u"][:, -1, :],) + bots_u[:-1]
         right_u = out["recon_u"][:, :, -1]
-        bots_v = (out["recon_v"][:, -1, :], bots_v[0])
+        bots_v = (out["recon_v"][:, -1, :],) + bots_v[:-1]
         right_v = out["recon_v"][:, :, -1]
 
     # unskew every output back to MB raster order
     res = {}
     for k in outs[0]:
         st = torch.stack([o[k] for o in outs])          # (steps, mbh, ...)
-        res[k] = unskew(st, mbw).reshape((mbh * mbw,) + st.shape[2:])
+        res[k] = unskew(st, mbw, slope).reshape((mbh * mbw,) + st.shape[2:])
     res["recon_y"] = unmbize(res["recon_y"], H, W)
     res["recon_u"] = unmbize(res["recon_u"], H // 2, W // 2, 8)
     res["recon_v"] = unmbize(res["recon_v"], H // 2, W // 2, 8)

@@ -76,12 +76,17 @@ class _PGroup:
 class BatchPipeline:
     def __init__(self, enc: TorchEncoder, rc, mbtree=None, window: int = 12):
         cfg = enc.cfg
-        if (mbtree is not None or cfg.bframes or cfg.cabac or cfg.weightp
-                or cfg.num_ref_frames > 1):
+        out = [name for name, on in (
+            ("B frames", cfg.bframes > 0), ("MB-tree", mbtree is not None),
+            ("weightp", cfg.weightp > 0), ("multi-ref", cfg.num_ref_frames > 1),
+            ("CABAC", cfg.cabac), ("AQ", cfg.aq_strength > 0),
+            ("the 8x8 transform", cfg.dct8x8), ("I4x4", cfg.i4x4),
+            ("scene cuts", cfg.scenecut > 0)) if on]
+        if out:
             raise NotImplementedError(
                 "the batched session carries P-only CAVLC streams with one "
-                "reference; B frames, MB-tree, weightp, multi-ref and CABAC "
-                "are not ported yet (ROADMAP.md, queue A)")
+                f"reference and one QP per frame; {', '.join(out)} "
+                "not ported yet there (ROADMAP.md, queue A)")
         self.enc = enc
         self.rc = rc
         self.window = max(2, window)

@@ -1,13 +1,16 @@
 """Encoder session object: device pipeline + host NAL wrapping (PyTorch).
 
-Port of the per-frame device CAVLC path of
-x264vfw_tpu/encode/tpu_encoder.py :: TpuEncoder for I and P frames:
-push_frame -> encode_frame -> one uint8 upload, the fused I or P phase 1
-(encode/device_finalize.py, with the in-loop deblock when the config
+Port of the per-frame device path of x264vfw_tpu/encode/tpu_encoder.py ::
+TpuEncoder for I and P frames: push_frame (with the scene-cut IDR
+decision) -> encode_frame -> one uint8 upload, the fused I or P phase 1
+(encode/device_finalize.py: I16x16 and I_NxN, P with AQ, weighted
+prediction and the 8x8 transform, the in-loop deblock when the config
 asks for it), a pack sized from the slot lengths, one pull of the payload
-bytes, and the NAL wrap on the host.  Reference frames (deblocked when
-the slice filters) stay on the device between frames.  The batched
-session (encode/pipeline.py) drives the same object: it reads and writes
+bytes, with --cabac the host CABAC transcode of that CAVLC slice
+(bitstream/cabac_transcode.py), and the NAL wrap on the host.  Reference
+frames (deblocked when the slice filters) stay on the device between
+frames.  The batched session (encode/pipeline.py) drives the same
+object: it reads and writes
 display_idx, _last_idr_d, poc_base, poc, frame_num and frame_idx, writes
 slice headers with _slice_header_codes and uploads a run of frames with
 pack_batch_rows.
@@ -18,12 +21,15 @@ version SEI) are the JAX package's, byte for byte.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from ..bitstream.mb_syntax import SLICE_I, SLICE_P
 from ..bitstream.nal import NAL_PPS, NAL_SLICE, NAL_SLICE_IDR, NAL_SPS, wrap_nal
-from ..bitstream.params import PPS, SPS, PROFILE_BASELINE
+from ..bitstream.params import (PPS, SPS, PROFILE_BASELINE, PROFILE_HIGH,
+                                PROFILE_MAIN)
 from ..bitstream.slice import SliceHeader
 from ..ops import tables
 from ..utils.bitstream import BitWriter
@@ -34,16 +40,9 @@ from .ref_encoder import EncoderConfig
 
 def _unsupported(cfg: EncoderConfig) -> list[str]:
     """Options of cfg that this port does not carry yet."""
-    out = []
-    for name, on in (("bframes", cfg.bframes > 0), ("cabac", cfg.cabac),
-                     ("i4x4", cfg.i4x4), ("dct8x8", cfg.dct8x8),
-                     ("ref > 1", cfg.num_ref_frames > 1),
-                     ("aq", cfg.aq_strength > 0), ("trellis", cfg.trellis),
-                     ("weightp", cfg.weightp > 0),
-                     ("scenecut", cfg.scenecut > 0)):
-        if on:
-            out.append(name)
-    return out
+    return [name for name, on in (("bframes", cfg.bframes > 0),
+                                  ("ref > 1", cfg.num_ref_frames > 1),
+                                  ("trellis", cfg.trellis)) if on]
 
 
 class TorchEncoder:
@@ -58,10 +57,12 @@ class TorchEncoder:
         self.device = resolve_device(device)
         self.mbw = (cfg.width + 15) // 16
         self.mbh = (cfg.height + 15) // 16
-        # CAVLC, no B frames: Constrained Baseline, POC type 2
+        # no B frames: High with the 8x8 transform, else Main with CABAC,
+        # else Constrained Baseline; POC type 2
         self.sps = SPS(
-            profile_idc=PROFILE_BASELINE,
-            constraint_set0=1,
+            profile_idc=PROFILE_HIGH if cfg.dct8x8
+            else (PROFILE_MAIN if cfg.cabac else PROFILE_BASELINE),
+            constraint_set0=0 if (cfg.cabac or cfg.dct8x8) else 1,
             constraint_set1=1,
             level_idc=_level_for(cfg.width, cfg.height, cfg.fps_num,
                                  cfg.fps_den),
@@ -79,14 +80,20 @@ class TorchEncoder:
             self.sps.frame_crop_right_offset = (self.mbw * 16 - cfg.width) // 2
             self.sps.frame_crop_bottom_offset = (self.mbh * 16 - cfg.height) // 2
         _apply_vui(self.sps, cfg)
-        self.pps = PPS(entropy_coding_mode_flag=0,
+        self.pps = PPS(entropy_coding_mode_flag=1 if cfg.cabac else 0,
                        pic_init_qp_minus26=cfg.qp - 26,
-                       weighted_pred_flag=0,
+                       weighted_pred_flag=1 if cfg.weightp > 0 else 0,
                        num_ref_idx_l0_default_active_minus1=0,
                        chroma_qp_index_offset=min(max(cfg.chroma_qp_offset,
                                                       -12), 12),
                        deblocking_filter_control_present_flag=1,
-                       transform_8x8_mode_flag=0)
+                       transform_8x8_mode_flag=1 if cfg.dct8x8 else 0)
+        self._wp: tuple | None = None   # this P frame's (w, o) or None
+        self._wp_prev = None            # pooled previous input luma
+        # scene-cut lookahead (--scenecut / --min-keyint)
+        from .lookahead import SceneCut
+        self._scenecut = SceneCut(cfg.scenecut) if cfg.scenecut > 0 else None
+        self.transcode_ms = 0.0   # the last frame's host CABAC transcode
         self.frame_idx = 0
         self.frame_num = 0
         self.idr_id = 0
@@ -111,8 +118,9 @@ class TorchEncoder:
         return y[:h, :w], u[:h // 2, :w // 2], v[:h // 2, :w // 2]
 
     def load_state(self, state) -> None:
-        """Resume from a convert.EncoderState, e.g. a JAX encoder's DPB
-        and counters.  Without B frames the display index is frame_idx."""
+        """Resume from a convert.EncoderState, e.g. a JAX encoder's DPB,
+        counters, weight-analysis and scene-cut state.  Without B frames
+        the display index is frame_idx."""
         H, W = self.mbh * 16, self.mbw * 16
         if tuple(state.ref[0].shape) != (H, W):
             raise ValueError(f"reference is {tuple(state.ref[0].shape)}, "
@@ -124,6 +132,10 @@ class TorchEncoder:
         self.poc = state.poc
         self.poc_base = state.poc_base
         self._last_idr_d = state.last_idr
+        self._wp_prev = state.wp_prev
+        if self._scenecut is not None:
+            self._scenecut.prev = state.scenecut_prev
+            self._scenecut._ema = state.scenecut_ema
 
     def headers(self) -> bytes:
         from ..bitstream.sei import version_sei, buffering_period_sei
@@ -145,8 +157,10 @@ class TorchEncoder:
         cfg = self.cfg
         d = self.display_idx
         self.display_idx += 1
+        cut = self._scenecut.is_cut(y) if self._scenecut is not None else False
         since = d - self._last_idr_d if self._last_idr_d is not None else None
-        is_idr = since is None or since >= cfg.keyint
+        is_idr = (since is None or since >= cfg.keyint
+                  or (cut and since >= max(cfg.min_keyint, 1)))
         if is_idr:
             self._last_idr_d = d
         au = self.encode_frame(y, u, v, qp=qp_i if is_idr else qp_p,
@@ -171,26 +185,34 @@ class TorchEncoder:
         if is_idr:
             self.frame_num = 0
             nal_type = NAL_SLICE_IDR
+            if cfg.weightp > 0:
+                self._weight_analysis(y)    # refresh the pooled-prev state
             hv, hl = self._header_slots(SLICE_I, nal_type)
             if self._i_full is None:
                 self._i_full = device_finalize.encode_i_slots_fn(
                     H, W, cfg.deblock, cfg.deblock_alpha, cfg.deblock_beta,
-                    qpc_offset=self.pps.chroma_qp_index_offset)
+                    qpc_offset=self.pps.chroma_qp_index_offset,
+                    i4x4=cfg.i4x4, dct8x8=cfg.dct8x8)
             sv_, sl_, ry, ru, rv = self._i_full(src_d, self.qp, self.qpc,
                                                 hv, hl)
         else:
             nal_type = NAL_SLICE
+            self._wp = (self._weight_analysis(y) if cfg.weightp > 0
+                        else None)
             hv, hl = self._header_slots(SLICE_P, nal_type)
             sv_, sl_, ry, ru, rv, out = device_finalize.encode_p_slots(
                 src_d, *self.ref, self.qp, self.qpc, hv, hl,
                 cfg.search_range, cfg.subpel, cfg.me_backend,
                 cfg.deblock, cfg.deblock_alpha, cfg.deblock_beta,
                 qpc_offset=self.pps.chroma_qp_index_offset,
-                partitions=cfg.partitions)
+                partitions=cfg.partitions, aq_strength=cfg.aq_strength,
+                wp=self._wp, dct8x8=cfg.dct8x8)
             self.last_mv = out["mv"]
             self.last_mv8 = out.get("mv8")
         data, nbits = device_finalize.pack_phase(sv_, sl_)
         payload = data[:(nbits + 7) // 8].cpu().numpy()
+        if cfg.cabac:
+            payload = self._transcode(payload, hl, "I" if is_idr else "P")
         self.ref = (ry, ru, rv)
         bs = b""
         if is_idr:
@@ -216,6 +238,49 @@ class TorchEncoder:
             for (y, u, v) in batch])
 
     # ------------------------------------------------------------------
+    def _transcode(self, payload: np.ndarray, hl: torch.Tensor,
+                   slice_type: str) -> bytes:
+        """Re-code the device's CAVLC slice as CABAC on the host.  A slice
+        the coder does not take raises: the encoder never writes one."""
+        from ..bitstream import cabac_transcode
+        t0 = time.perf_counter()
+        body = cabac_transcode.transcode_slice(
+            payload, int(hl.sum()), slice_type, self.mbh, self.mbw, self.qp,
+            t8_mode=bool(self.pps.transform_8x8_mode_flag))
+        if body is None:
+            raise RuntimeError(f"the CABAC transcode rejected the encoder's "
+                               f"own CAVLC {slice_type} slice")
+        self.transcode_ms = (time.perf_counter() - t0) * 1e3
+        return body
+
+    def _weight_analysis(self, y: np.ndarray):
+        """Per-frame explicit weighted-prediction decision (x264 --weightp
+        'smart' role), host numpy as in the JAX package: least squares
+        cur ~ a * prev + b on the 8x-pooled input luma; the weights are
+        used only when they clearly beat identity (fades).  Returns
+        (w, o) at denominator 6, or None."""
+        p = np.asarray(y, np.float32)
+        hh, ww = p.shape[0] - p.shape[0] % 8, p.shape[1] - p.shape[1] % 8
+        cur = p[:hh, :ww].reshape(hh // 8, 8, ww // 8, 8).mean(axis=(1, 3))
+        prev, self._wp_prev = self._wp_prev, cur
+        if prev is None or prev.shape != cur.shape:
+            return None
+        vp = float(prev.var())
+        if vp < 1.0:
+            return None
+        a = float(((cur * prev).mean() - cur.mean() * prev.mean()) / vp)
+        b = float(cur.mean() - a * prev.mean())
+        w_ = int(min(max(round(a * 64), -128), 127))
+        o_ = int(min(max(round(b), -128), 127))
+        if abs(w_ - 64) <= 1 and abs(o_) <= 1:
+            return None
+        sse_id = float(((cur - prev) ** 2).mean())
+        wpred = np.clip(((prev * w_ + 32) // 64) + o_, 0, 255)
+        sse_w = float(((cur - wpred) ** 2).mean())
+        if sse_w > 0.75 * sse_id:
+            return None
+        return (w_, o_)
+
     def _header_slots(self, slice_type: int, nal_type: int):
         """Slice-header codes as fixed-size device slot arrays."""
         hw = self._slice_header_codes(slice_type, nal_type)
@@ -237,6 +302,9 @@ class TorchEncoder:
                         else 1,
                         slice_alpha_c0_offset_div2=self.cfg.deblock_alpha,
                         slice_beta_offset_div2=self.cfg.deblock_beta)
+        if self.pps.weighted_pred_flag and slice_type == SLICE_P:
+            h.luma_log2_weight_denom = 6
+            h.luma_weights_l0 = [self._wp]
         h.write(w, self.sps, self.pps, nal_type, nal_ref_idc)
         return w
 

@@ -95,12 +95,14 @@ def _bs_between(p_intra, q_intra, tc_p, tc_q, mv_p, mv_q, ref_p, ref_q,
 
 
 def build_maps(intra_mb, tc4, mv4, ref4, qp_map, offA: int, offB: int,
-               chroma_qp_offset: int):
+               chroma_qp_offset: int, t8_4=None):
     """Edge-parameter maps for one frame.
 
     intra_mb (mbh, mbw) bool; tc4 (4mbh, 4mbw) int32 total_coeff per 4x4;
     mv4 (4mbh, 4mbw, 2) int32 quarter-pel; ref4 (4mbh, 4mbw) int32;
-    qp_map (mbh, mbw) int32.  offA/offB = 2 * the slice offsets.
+    qp_map (mbh, mbw) int32.  offA/offB = 2 * the slice offsets.  t8_4
+    (4mbh, 4mbw) bool, optional: the 4x4 blocks of 8x8-transformed MBs,
+    whose internal luma edges 1 and 3 are not filtered (§8.7).
     Returns (mapsV, mapsH, mapsVc, mapsHc) int32."""
     mbh, mbw = intra_mb.shape
     dev = intra_mb.device
@@ -113,6 +115,9 @@ def build_maps(intra_mb, tc4, mv4, ref4, qp_map, offA: int, offB: int,
                       _prev(mv4, 1), mv4, _prev(ref4, 1), ref4,
                       (bx % 4 == 0)[None, :])
     bsv[:, 0] = 0                                        # frame left edge
+    if t8_4 is not None:
+        bsv = torch.where(((bx % 4 == 1) | (bx % 4 == 3))[None, :] & t8_4,
+                          0, bsv)
     # edge column 4x + e takes the left MB's QP as qp_p only for e == 0
     qq = rep(qp_map, 4, 1)                               # (mbh, 4mbw)
     qp_pv = torch.where((bx % 4 == 0)[None, :], rep(_prev(qp_map, 1), 4, 1),
@@ -127,6 +132,9 @@ def build_maps(intra_mb, tc4, mv4, ref4, qp_map, offA: int, offB: int,
                       _prev(mv4, 0), mv4, _prev(ref4, 0), ref4,
                       (by % 4 == 0)[:, None])
     bsh[0, :] = 0                                        # frame top edge
+    if t8_4 is not None:
+        bsh = torch.where(((by % 4 == 1) | (by % 4 == 3))[:, None] & t8_4,
+                          0, bsh)
     qq_h = rep(qp_map, 4, 0)                             # (4mbh, mbw)
     qp_ph = torch.where((by % 4 == 0)[:, None], rep(_prev(qp_map, 0), 4, 0),
                         qq_h)

@@ -1,11 +1,13 @@
-"""Build the CUDA sources under csrc/ with nvcc and load them with ctypes.
+"""Build the CUDA sources under csrc/ with nvcc, and the host C sources
+under csrc/host/ with gcc, and load them with ctypes.
 
 Each source is compiled on its own into a shared library with a plain C
 interface, at first use, into x264vfw_tpu_torch/_build/.  The library's
 file name carries a hash of the source, so an edited source is rebuilt
 and an unchanged one is loaded as it is.  What nvcc printed (with
 -Xptxas -v: registers, shared memory and spills per kernel) is kept beside
-the library (report_path).  Nothing here runs at import.
+the library (report_path).  A failed build raises.  Nothing here runs at
+import.
 """
 
 from __future__ import annotations
@@ -22,6 +24,11 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
+HOST_DIR = os.path.join(CSRC_DIR, "host")
+# host libraries: name -> (the C source, the files it includes)
+HOST_SOURCES = {"cabac": ("cabac_ext.c", "cabac_tables.h"),
+                "cavlcparse": ("cavlc_parse.c",)}
+GCC_FLAGS = ("-O3", "-shared", "-fPIC")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -115,4 +122,43 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = ctypes.CDLL(library_path(name))
         _loaded[name] = lib
+    return lib
+
+
+def host_library_path(name: str) -> str:
+    """Path of the library built from csrc/host/ for `name` (its source
+    and included files) at their current hash."""
+    h = hashlib.sha256()
+    for f in HOST_SOURCES[name]:
+        with open(os.path.join(HOST_DIR, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The ctypes handle of the host library `name` (HOST_SOURCES), built
+    with gcc first if need be."""
+    key = "host:" + name
+    lib = _loaded.get(key)
+    if lib is None:
+        out = host_library_path(name)
+        if not os.path.exists(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = ["gcc", *GCC_FLAGS,
+                   os.path.join(HOST_DIR, HOST_SOURCES[name][0]), "-o", tmp]
+            try:
+                r = subprocess.run(cmd, capture_output=True, text=True)
+            except OSError as e:
+                os.unlink(tmp)
+                raise RuntimeError(f"gcc could not run for csrc/host/"
+                                   f"{HOST_SOURCES[name][0]}: {e}") from e
+            if r.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(f"gcc failed on csrc/host/"
+                                   f"{HOST_SOURCES[name][0]}:\n{r.stderr}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(out)
+        _loaded[key] = lib
     return lib
