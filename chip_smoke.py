@@ -26,16 +26,26 @@ CompressSessions on clips of textured content moving by a known shift:
     prediction, P partitions at half pel and the loop filter: the SAD and
     partition_refine_mc kernels once per P frame, deblock_apply once on
     every frame;
+  * veryfast batched, x264's --preset veryfast --crf 23 on the batched
+    session (27 frames: 1 IDR, two windows of 12 whose mini-GOPs of 3 B
+    frames cross the window boundary, and a flush whose tail is a
+    promoted P and one B: 1 I, 7 P, 19 B): B frames, MB-tree and
+    everything of the veryfast line: SAD and partition_refine_mc once
+    per P anchor, deblock_apply once per I and P frame, none on B frames;
 
 and checks each stream, its motion vectors and its reconstruction, and
 holds the SAD (both modes) and partition_refine_mc kernels against their
-plain versions once more on slice 2's last P frame's own inputs, and all
-of them (deblock_apply on maps with 8x8-transformed MBs and per-MB QPs)
-on the veryfast phase's last P frame's, where they are also timed.  Then
-it encodes a small clip with each command line on the card and on the
-CPU and requires identical bytes (for veryfast and superfast with
---min-keyint 2, on a clip with a fade and a scene cut).  Each kernel's launch count is set to 0
-just before a session and read just after it.  Prints one line per phase
+plain versions once more on slice 2's last P frame's own inputs, all of
+them (deblock_apply on maps with 8x8-transformed MBs and per-MB QPs) on
+the veryfast phase's last P frame's, and all of them again on a batched
+P anchor's own inputs (per-MB QPs from MB-tree and AQ), where they are
+also timed.  Then it encodes a small clip with each command line on the
+card and on the CPU and requires identical bytes (for the veryfast and
+superfast lines with --min-keyint 2, on a clip with a fade and a scene
+cut; the B-frame lines on 30 frames with the cut inside a window, which
+drains pending B frames as a tail, and veryfast also with --threads 1).
+Each kernel's launch count is set to 0 just before a session and read
+just after it.  Prints one line per phase
 with its elapsed seconds; the last three lines are the card's name and
 power limit, the kernels' JSON record and {"ok": true, "device": ...}.
 Any failed check raises, and the script exits non-zero; without a CUDA
@@ -72,8 +82,14 @@ CMDLINE_L4 = ("--preset ultrafast --tune zerolatency --qp 26 --subme 7 "
               "--deblock 0:0")
 CMDLINE_VF = "--preset veryfast --tune zerolatency --crf 23"
 CMDLINE_SF = "--preset superfast --tune zerolatency --crf 23"
+CMDLINE_VFB = "--preset veryfast --crf 23"       # batched, B frames, MB-tree
+CMDLINE_SFB = "--preset superfast --crf 23"      # batched, B frames
 L3_FRAMES = 26           # two windows of 12 and a flush of 2
 VF_FRAMES = 5            # 1 IDR + 4 P, the last a fade
+VFB_FRAMES = 27          # 1 IDR, two windows of 12, a flush of 2
+VFB_TYPES = {"I": 1, "P": 7, "B": 19}
+B_FRAMES = 30            # the card-vs-CPU clip of the B-frame lines
+B_CUT = 19               # its scene cut, inside the second window
 FADE = 0.8               # the fade frame's luma gain
 DEV = "cuda"
 KERNELS = ("sad", "memc", "deblock")
@@ -842,6 +858,170 @@ def main() -> int:
         for k in KERNELS:
             err[k] = max(err[k], vf_err[k])
         err["sad"] = max(err["sad"], vf_err["quad"])
+        phase("session_1080p_veryfast", t, bytes=len(stream),
+              i_ms=round(frame_ms[0], 1),
+              p_ms=[round(x, 1) for x in frame_ms[1:]],
+              cabac_ms=[round(x, 2) for x in tc_ms],
+              psnr_y=[round(x, 2) for x in psnrs],
+              mv8_match=[round(x, 4) for x in mv_ok], launches=launches_v,
+              i_nxn_share=round(i4_share[0], 4),
+              t8_share=[round(x, 4) for x in t8_share],
+              weighted_p=weighted, aq_qp_range=list(qp_range),
+              session_max_abs_err=vf_err)
+        del p_outs, out, recon, maps
+
+        # ---- 9. veryfast batched: B frames, MB-tree, the batched session --
+        t = time.time()
+        clip_b = moving_clip(w, h, VFB_FRAMES, seed=6)
+        sess = CompressSession(extra_cmdline=CMDLINE_VFB, device=DEV)
+        sess.begin(w, h)
+        enc, pipe = sess.encoder, sess._pipe
+        cfg = enc.cfg
+        check(pipe is not None and sess.mbtree is not None
+              and (cfg.bframes, cfg.cabac, cfg.i4x4, cfg.dct8x8,
+                   cfg.aq_strength > 0, cfg.weightp, cfg.scenecut > 0,
+                   cfg.partitions, cfg.subpel, cfg.deblock)
+              == (3, True, True, True, True, 1, True, True, 1, True),
+              "veryfast options reach the batched session")
+        R = cfg.search_range
+        # per frame type, each phase-1 call's device span (CUDA events, no
+        # host sync) over its frames; the P anchors with MB-tree offsets
+        # (their inputs and syntax tensors); the I frame's
+        # recon; the MB-tree offsets; the emitted (display, type) order
+        ev = {"I": [], "P": [], "B": []}
+        anchors, offs, order, i_recon = [], [], [], []
+        plain = {"p": dfin.encode_p_slots, "pgop": dfin.encode_pgop_slots,
+                 "bgop": dfin.encode_bgop_slots, "frame": enc.encode_frame,
+                 "pop": sess.mbtree._pop, "emit": sess._emit}
+
+        def timed(fn, kind):
+            """fn, recording its device span under kind(*args) -> (frame
+            type, frames in the call)."""
+            def run(*a, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                res = fn(*a, **k)
+                e1.record()
+                ftype, n = kind(*a, **k)
+                ev[ftype].append((e0, e1, n))
+                return res
+            return run
+
+        def keep_anchor(*a, **k):
+            res = plain["p"](*a, **k)
+            if k.get("qp_off") is not None:
+                anchors.append((a, k["qp_off"], res[-1]))
+            return res
+
+        def keep_frame(*a, **k):
+            res = timed(plain["frame"], lambda *a, force_idr=None, **k: (
+                "I" if force_idr else "P", 1))(*a, **k)
+            if k.get("force_idr"):
+                i_recon.append(enc.last_recon[0])
+            return res
+
+        def keep_offs():
+            res = plain["pop"]()
+            offs.append(res[1])
+            return res
+
+        def keep_order(outs, *a, **k):
+            order.extend((it[1], it[3]) for it in outs)
+            return plain["emit"](outs, *a, **k)
+
+        dfin.encode_p_slots = keep_anchor
+        dfin.encode_pgop_slots = timed(
+            plain["pgop"], lambda rows, *a, **k: ("P", rows.shape[0]))
+        dfin.encode_bgop_slots = timed(
+            plain["bgop"], lambda rows, *a, **k: ("B", rows.shape[0]))
+        enc.encode_frame = keep_frame
+        sess.mbtree._pop = keep_offs
+        sess._emit = keep_order
+        try:
+            for m in mods.values():
+                m.LAUNCHES = 0
+            t1 = time.time()
+            outs = [sess.compress(frame) for frame in clip_b]
+            tail = sess.end()["tail"]
+            torch.cuda.synchronize()
+            wall = time.time() - t1
+            launches_vb = {k: m.LAUNCHES for k, m in mods.items()}
+        finally:
+            dfin.encode_p_slots = plain["p"]
+            dfin.encode_pgop_slots = plain["pgop"]
+            dfin.encode_bgop_slots = plain["bgop"]
+        stream = b"".join(outs) + tail
+        types = "".join(ft for _, ft in order)
+        check({k: types.count(k) for k in "IPB"} == VFB_TYPES
+              and sorted(d for d, _ in order) == list(range(VFB_FRAMES)),
+              f"veryfast batched frame types {types}, want {VFB_TYPES}")
+        vcl = [u for u in split_annexb(stream) if u.nal_unit_type in (1, 5)]
+        check("".join("I" if u.nal_unit_type == 5 else
+                      ("P" if u.nal_ref_idc else "B") for u in vcl) == types,
+              f"NAL types and nal_ref_idc follow the frame types {types}")
+        check(launches_vb == {"sad": VFB_TYPES["P"], "memc": VFB_TYPES["P"],
+                              "deblock": VFB_TYPES["I"] + VFB_TYPES["P"]},
+              f"veryfast batched launches {launches_vb}: want one SAD and "
+              "memc per P anchor, one deblock per I and P frame")
+        delay = sess.frames_info().delay
+        check(delay == 3 + 10 + 23, f"veryfast batched delay {delay}")
+        psnr_i = psnr(i_recon[0], clip_b[0][0])
+        last_d = max(d for d, ft in order if ft == "P")
+        prev_d = max(d for d, ft in order if ft != "B" and d < last_d)
+        psnr_last = psnr(enc.last_recon[0], clip_b[last_d][0])
+        check(psnr_i > 30.0 and psnr_last > 30.0, f"PSNR of the I frame "
+              f"{psnr_i} and of the last anchor (frame {last_d}) "
+              f"{psnr_last}")
+        want_col = [4 * abs(SHIFT[0]) * (last_d - prev_d),
+                    4 * abs(SHIFT[1]) * (last_d - prev_d)]
+        col_ok = interior_match(enc.last_mv, enc.mbh, enc.mbw, want_col)
+        check(col_ok >= 0.9, f"the last anchor's colocated field equals "
+              f"{want_col} on {col_ok} of interior MBs")
+        ms = {k: [a.elapsed_time(b) / n for a, b, n in v]
+              for k, v in ev.items()}
+        off_range = (min(int(o.min()) for o in offs),
+                     max(int(o.max()) for o in offs))
+        check(len(offs) == VFB_FRAMES and off_range[0] < 0,
+              f"MB-tree offsets {off_range} over {len(offs)} frames")
+
+        # every kernel on a batched anchor's own inputs, formed as the
+        # encoder forms them; its maps carry MB-tree + AQ per-MB QPs
+        # the last batched anchor whose offsets are not all 0
+        kept = [x for x in anchors if int(x[1].min()) < 0]
+        check(bool(kept), "a batched P anchor with MB-tree offsets")
+        (a_src, a_ry, _, _, a_qp, *_), _, out = kept[-1]
+        del anchors, kept
+        H, W = 16 * enc.mbh, 16 * enc.mbw
+        src8 = a_src[:H * W].reshape(H, W).contiguous()
+        refp_r = dv._edge_pad(a_ry, R).to(torch.uint8).contiguous()
+        refp_m = dv._edge_pad(a_ry, R + 8).to(torch.uint8).contiguous()
+        mins = sadk.sad_partition_minima(src8, refp_r, R)
+        part, mv8i = partition_decide_from_minima(mins, R, a_qp)
+        check(torch.equal(memck.partition_refine_mc_plain(
+            src8, refp_m, mv8i, part, R, 1)[0], out["mv8"]),
+            "plain memc on the batched anchor's inputs gives its mv8")
+        maps = dv.loop_filter_maps(out, a_qp, enc.mbh, enc.mbw, False,
+                                   0, 0, enc.pps.chroma_qp_index_offset)
+        recon = [out[k].contiguous()
+                 for k in ("recon_y", "recon_u", "recon_v")]
+        qp_span = (int(out["qp_real"].min()), int(out["qp_real"].max()))
+        vb_err = {
+            "sad": max_diff(mins, sadk.sad_partition_minima_plain(
+                src8, refp_r, R)),
+            "quad": max_diff(sadk.sad_search_quad(src8, refp_r, R),
+                             sadk.sad_search_quad_plain(src8, refp_r, R)),
+            "memc": max_diff(
+                memck.partition_refine_mc(src8, refp_m, mv8i, part, R, 1),
+                memck.partition_refine_mc_plain(src8, refp_m, mv8i, part, R,
+                                                1)),
+            "deblock": max_diff(dbk.deblock_apply(*recon, *maps),
+                                dbk.deblock_apply_plain(*recon, *maps))}
+        check(not any(vb_err.values()),
+              f"kernels vs plain on the batched anchor's inputs: {vb_err}")
+        for k in KERNELS:
+            err[k] = max(err[k], vb_err[k])
+        err["sad"] = max(err["sad"], vb_err["quad"])
         calls = {
             "sad": (lambda: sadk.sad_partition_minima(src8, refp_r, R),
                     lambda: sadk.sad_partition_minima_plain(src8, refp_r, R),
@@ -863,49 +1043,63 @@ def main() -> int:
                       cuda_ms_b2b(kern))
                   for k, (kern, plain, bd) in calls.items()}
         quad = timing.pop("quad")
-        phase("session_1080p_veryfast", t, bytes=len(stream),
-              i_ms=round(frame_ms[0], 1),
-              p_ms=[round(x, 1) for x in frame_ms[1:]],
-              cabac_ms=[round(x, 2) for x in tc_ms],
-              psnr_y=[round(x, 2) for x in psnrs],
-              mv8_match=[round(x, 4) for x in mv_ok], launches=launches_v,
-              i_nxn_share=round(i4_share[0], 4),
-              t8_share=[round(x, 4) for x in t8_share],
-              weighted_p=weighted, aq_qp_range=list(qp_range),
-              session_max_abs_err=vf_err,
+        phase("session_1080p_veryfast_batched", t, bytes=len(stream),
+              wall_s=round(wall, 3), fps=round(VFB_FRAMES / wall, 3),
+              delay=delay, types=types,
+              ms_per_frame={k: [round(x, 1) for x in v]
+                            for k, v in ms.items()},
+              cabac_ms=round(sum(pipe.transcode_ms), 2),
+              cabac_batches=len(pipe.transcode_ms),
+              mbtree_qp_offsets=list(off_range),
+              anchor_qp_range=list(qp_span), psnr_i=round(psnr_i, 2),
+              last_anchor=last_d, psnr_last=round(psnr_last, 2),
+              colocated_match=round(col_ok, 4), launches=launches_vb,
+              session_max_abs_err=vb_err,
               kernel_ms={k: round(v[0], 4) for k, v in timing.items()},
               kernel_ms_b2b={k: round(v[4], 4) for k, v in timing.items()},
               plain_ms={k: round(v[1], 2) for k, v in timing.items()},
               quad_ms=round(quad[0], 4), quad_ms_b2b=round(quad[4], 4))
-        del p_outs, out, recon, maps
+        del out, recon, maps
 
-        # ---- 9. card vs CPU on a small clip, every command line ------------
+        # ---- 10. card vs CPU on a small clip, every command line -----------
         t = time.time()
         small = moving_clip(*SMALL_SIZE, L3_FRAMES, seed=2, shift=HIER_SHIFT)
         live = live_clip(*SMALL_SIZE, 6, seed=5, cut_at=3, fade_from=4)
+        live_b = live_clip(*SMALL_SIZE, B_FRAMES, seed=15, cut_at=B_CUT,
+                           fade_from=B_FRAMES - 4)
+        # (command line, clip, display indices of the IDRs)
+        lines = ((CMDLINE, small[:4], None), (CMDLINE_PARTS, small[:4], None),
+                 (CMDLINE_L3, small, None), (CMDLINE_L4, small[:4], None),
+                 (CMDLINE_VF + " --min-keyint 2", live, [0, 3]),
+                 (CMDLINE_SF + " --min-keyint 2", live, [0, 3]),
+                 (CMDLINE_VFB + " --min-keyint 2", live_b, [0, B_CUT]),
+                 (CMDLINE_SFB + " --min-keyint 2", live_b, [0, B_CUT]),
+                 (CMDLINE_VFB + " --min-keyint 2 --threads 1", live_b,
+                  [0, B_CUT]))
         sizes, idrs = {}, {}
-        for cmd, clip_s in ((CMDLINE, small[:4]), (CMDLINE_PARTS, small[:4]),
-                            (CMDLINE_L3, small), (CMDLINE_L4, small[:4]),
-                            (CMDLINE_VF + " --min-keyint 2", live),
-                            (CMDLINE_SF + " --min-keyint 2", live)):
-            got = {}
+        for cmd, clip_s, want_idr in lines:
+            got, shown = {}, {}
             for d in (DEV, "cpu"):
                 s = CompressSession(extra_cmdline=cmd, device=d)
                 s.begin(*SMALL_SIZE)
+                # the (display index, is_idr) of each AU the session emits
+                shown[d] = []
+                s._emit = (lambda outs, *a, _e=s._emit, _s=shown[d], **k:
+                           _s.extend(it[1:3] for it in outs)
+                           or _e(outs, *a, **k))
                 outs = [s.compress(fr) for fr in clip_s]
                 got[d] = (outs, s.end()["tail"], s.frames_info().delay)
             check(got[DEV] == got["cpu"], f"card and CPU outputs differ at "
                   f"{SMALL_SIZE} for {cmd!r}")
             sizes[cmd] = len(b"".join(got["cpu"][0]) + got["cpu"][1])
-            idrs[cmd] = [i for i, au in enumerate(got["cpu"][0]) if 5 in
-                         [u.nal_unit_type for u in split_annexb(au)]]
-        for cmd in list(idrs)[-2:]:
-            check(idrs[cmd][:2] == [0, 3], f"the scene cut (frame 3) is an "
-                  f"IDR for {cmd!r}: IDRs at {idrs[cmd]}")
+            idrs[cmd] = [pts for pts, key in shown["cpu"] if key]
+            check(want_idr is None or idrs[cmd] == want_idr,
+                  f"IDRs of {cmd!r} at {idrs[cmd]}, want {want_idr} (the "
+                  "scene cut an IDR)")
         phase("card_vs_cpu", t, bytes=list(sizes.values()),
               idrs=list(idrs.values()), identical=True)
 
-        # ---- 10. the record -------------------------------------------------
+        # ---- 11. the record -------------------------------------------------
         meta = {
             "sad": ("csrc/sad.cu", "x264vfw_tpu/ops/pallas/sad.py:239"),
             "memc": ("csrc/memc.cu", "x264vfw_tpu/ops/pallas/memc.py:253"),
@@ -920,11 +1114,12 @@ def main() -> int:
             rec = {
                 "name": names[k], "route": "cuda",
                 "source": "x264vfw_tpu_torch/" + meta[k][0],
-                "replaces": meta[k][1], "launches": launches_v[k],
+                "replaces": meta[k][1], "launches": launches_vb[k],
                 "max_abs_err": err[k], "ms": ms, "ms_b2b": ms_b2b,
                 "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None, "matched": err[k] == 0,
+                "veryfast_launches": launches_v[k],
                 "slice2_launches": launches[k],
                 "l3_launches": launches3[k], "l4_launches": launches4[k],
                 "build_s": build_s[k], "ptxas": ptxas_report(k),
@@ -940,7 +1135,8 @@ def main() -> int:
                             "quad_bound_ms": quad[2],
                             "quad_bound_by": quad[3]})
             if k == "deblock":
-                rec["launches_per_frame"] = launches_v[k] // VF_FRAMES
+                rec["launches_per_frame"] = launches_vb[k] // (
+                    VFB_TYPES["I"] + VFB_TYPES["P"])
             kernels.append(rec)
         print(card, flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)

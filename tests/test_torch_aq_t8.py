@@ -29,7 +29,6 @@ import torch
 
 import torch_jax_refs
 from x264vfw_tpu.encode import device as jdev
-from x264vfw_tpu.ops import deblock as jdb
 from x264vfw_tpu.ops import transform as jt
 from x264vfw_tpu_torch.encode import device as tdev
 from x264vfw_tpu_torch.ops import deblock as tdb
@@ -231,7 +230,12 @@ def test_luma_residual_pipeline_t8_matches_jax(per_mb, decimate):
         assert 0 < int(got[2].sum()) < n      # both transforms win
 
 
-def test_build_maps_with_t8_and_per_mb_qp_match_jax():
+MAPS_OFFSETS = ((0, 0, 0), (4, -6, 2))     # (offA, offB, chroma offset)
+
+
+def maps_case():
+    """(metadata of build_maps, t8_4) at 5x7 MBs: intra MBs, coded
+    blocks, vectors, per-MB QPs 10..51, half the MBs 8x8-transformed."""
     rng = np.random.default_rng(8)
     mbh, mbw = 5, 7
     meta = (rng.random((mbh, mbw)) < 0.2,
@@ -242,14 +246,19 @@ def test_build_maps_with_t8_and_per_mb_qp_match_jax():
             rng.integers(10, 52, (mbh, mbw)).astype(np.int32))
     t8 = np.kron(rng.random((mbh, mbw)) < 0.5,
                  np.ones((4, 4), bool)).astype(bool)
-    fn = jax.jit(jdb.build_maps, static_argnums=(5, 6, 7))
-    for offA, offB, cqo in ((0, 0, 0), (4, -6, 2)):
-        want = fn(*(jnp.asarray(a) for a in meta), offA, offB, cqo,
-                  t8_4=jnp.asarray(t8))
+    return meta, t8
+
+
+def test_build_maps_with_t8_and_per_mb_qp_match_jax():
+    """Against the JAX build_maps on these inputs, committed in
+    tests/jax_refs/calls.npz (maps_<offA>_<offB>_<cqo>_<i>)."""
+    meta, t8 = maps_case()
+    refs = torch_jax_refs.load("calls")
+    for offA, offB, cqo in MAPS_OFFSETS:
         got = tdb.build_maps(*(_t(a) for a in meta), offA, offB, cqo,
                              t8_4=_t(t8))
-        for g, w in zip(got, want):
-            _eq(g, w)
+        for i, g in enumerate(got):
+            _eq(g, refs[f"maps_{offA}_{offB}_{cqo}_{i}"])
 
 
 def p_case(seed=9):

@@ -9,8 +9,9 @@ transcoders must return the same bytes, and the port's must match the
 CABAC slice the port's session wrote.  Also: the port builds its own
 copies of the C sources (csrc/host/) into x264vfw_tpu_torch/_build/ and
 never writes into tools/; a failed gcc build raises; a rejected slice
-raises in the encoder; B slices are refused.  Inputs come from numpy
-seeds; no tolerance.
+raises in the encoder; a B slice the parser cannot read is rejected as
+the JAX transcoder rejects it (B slices themselves: test_torch_bframes.py).
+Inputs come from numpy seeds; no tolerance.
 """
 
 import os
@@ -138,5 +139,11 @@ def test_rejected_slice_raises(monkeypatch):
 
 
 def test_b_slices_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tct.transcode_slice(np.zeros(8, np.uint8), 8, "B", 3, 4, 26)
+    """B slices go through the transcoder now; one that does not parse
+    (all zero bits) is refused with None, by both transcoders, and an
+    unknown slice type raises."""
+    junk = np.zeros(8, np.uint8)
+    assert tct.transcode_slice(junk, 8, "B", 3, 4, 26) is None
+    assert jct.transcode_slice(junk, 8, "B", 3, 4, 26) is None
+    with pytest.raises(ValueError):
+        tct.transcode_slice(junk, 8, "SP", 3, 4, 26)

@@ -9,7 +9,6 @@ Tolerance: none.
 """
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -30,9 +29,13 @@ def _blocks(maxc, n, seed):
     return (mag * (rng.uniform(size=(n, maxc)) < dens)).astype(np.int32)
 
 
-@pytest.mark.parametrize("maxc,ncs", [(16, (0, 1, 2, 3, 4, 7, 8, 16)),
-                                      (15, (0, 3, 6, 9)), (4, (-1,))])
-def test_encode_blocks_slot_for_slot(maxc, ncs):
+BLOCK_CASES = ((16, (0, 1, 2, 3, 4, 7, 8, 16)), (15, (0, 3, 6, 9)),
+               (4, (-1,)))
+
+
+def blocks_case(maxc, ncs):
+    """(levels, nC) of an encode_blocks case: random blocks plus extremes
+    (escape levels, trailing ones, a full block)."""
     lv = _blocks(maxc, 600, seed=maxc)
     extreme = np.zeros((6, maxc), np.int32)
     extreme[0, 0] = 2047
@@ -43,13 +46,19 @@ def test_encode_blocks_slot_for_slot(maxc, ncs):
     extreme[5, :2] = [30, -31]
     lv = np.concatenate([lv, extreme])
     rng = np.random.default_rng(1)
-    nC = rng.choice(np.asarray(ncs), size=lv.shape[0]).astype(np.int32)
+    return lv, rng.choice(np.asarray(ncs), size=lv.shape[0]).astype(np.int32)
+
+
+@pytest.mark.parametrize("maxc,ncs", BLOCK_CASES)
+def test_encode_blocks_slot_for_slot(maxc, ncs):
+    """Against cavlc_jax.encode_blocks's slots on these inputs, committed
+    in tests/jax_refs/calls.npz (blocks_<maxc>_vals/_lens)."""
+    lv, nC = blocks_case(maxc, ncs)
     gv, gl = cavlc_dev.encode_blocks(torch.from_numpy(lv),
                                      torch.from_numpy(nC), maxc)
-    wv, wl = jax.jit(cavlc_jax.encode_blocks, static_argnums=(2,))(
-        jnp.asarray(lv), jnp.asarray(nC), maxc)
-    np.testing.assert_array_equal(gl.numpy(), np.asarray(wl))
-    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv).astype(np.int64))
+    refs = torch_jax_refs.load("calls")
+    np.testing.assert_array_equal(gl.numpy(), refs[f"blocks_{maxc}_lens"])
+    np.testing.assert_array_equal(gv.numpy(), refs[f"blocks_{maxc}_vals"])
 
 
 def test_exp_golomb_codes():

@@ -7,8 +7,10 @@ phase or a check shows without a card: the two slice sessions, the
 batched --preset ultrafast --crf 23 session (26 frames, two windows and a
 flush), the hierarchical quarter-pel session with the loop filter, the
 veryfast session (CABAC, I4x4, the 8x8 transform, AQ, weighted P) with
-its kernels held against their plain versions, and card against CPU for
-all six command lines.
+its kernels held against their plain versions, the batched veryfast
+session with B frames and MB-tree (1 I, 7 P, 19 B) with its kernels held
+against their plain versions on a P anchor's inputs, and card against
+CPU for all nine command lines.
 Also: without a card the script exits non-zero and prints no result.
 """
 
@@ -71,6 +73,9 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(cs, "SAD_FLAT", (32, 48, 3))
     monkeypatch.setattr(cs, "MEMC_EXTRA", (32, 64, 4))
     monkeypatch.setattr(cs, "DEBLOCK_MBS", ((3, 4), (2, 5)))
+    # the B-frame lines' card-vs-CPU clip: the scene cut (frame 19) and
+    # two frames after it (the script's 30 on the card)
+    monkeypatch.setattr(cs, "B_FRAMES", 22)
     monkeypatch.setattr(cs, "card_line", lambda: "cpu, 0 W")
     monkeypatch.setattr(cs, "sm_clock_hz", lambda: 1.98e9)
     monkeypatch.setattr(cs, "sad_sass_per_sad4", lambda: None)
@@ -122,8 +127,12 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
             "ms", "ms_b2b", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in kern)
     assert {"quad_ms", "quad_ms_b2b", "quad_bound_ms"} <= set(kern[0])
-    # the veryfast phase: one SAD and memc per P frame, one deblock per frame
-    assert [k["launches"] for k in kern] == [4, 4, 5]
+    # the batched veryfast phase: one SAD and memc per P anchor, one
+    # deblock per I and P frame, none on its 19 B frames
+    assert [k["launches"] for k in kern] == [7, 7, 8]
+    # the per-frame veryfast phase: one SAD and memc per P frame, one
+    # deblock per frame
+    assert [k["veryfast_launches"] for k in kern] == [4, 4, 5]
     assert [k["slice2_launches"] for k in kern] == [5, 5, 6]
     # L3 runs none of the kernels, L4 the loop filter once per frame
     assert [k["l3_launches"] for k in kern] == [0, 0, 0]
@@ -131,7 +140,8 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     phases = {ln.split("] ")[1].split(":")[0] for ln in lines
               if ln.startswith("[")}
     assert {"session_1080p_ultrafast_crf23", "session_1080p_hier_qpel_deblock",
-            "session_1080p_veryfast", "card_vs_cpu"} <= phases
+            "session_1080p_veryfast", "session_1080p_veryfast_batched",
+            "card_vs_cpu"} <= phases
     assert kern[2]["launches_per_frame"] == 1
     assert kern[0]["slice1_launches"] == 3
     H, W, R = kern[0]["shape"]     # one VABSDIFF4 per 4 byte differences

@@ -9,7 +9,8 @@ that the refine's neighbour alignment and the edge clamp both show.
 Cases: rng 16 at integer, half and quarter pel; rng 7 (odd: rng_c and
 lim differ from the even case); rng 5 (below 6 the search is exhaustive,
 the SAD kernel's plain version).  The comparison is exact (mv_q, pred_y,
-pred_u, pred_v).
+pred_u, pred_v), against the JAX search's outputs on these inputs,
+committed in tests/jax_refs/calls.npz.
 
 The session of L4, --preset ultrafast --tune zerolatency --qp 26
 --subme 7 --deblock 0:0 (the hierarchical search, 16x16 quarter-pel
@@ -69,16 +70,27 @@ def two_region_frames(seed, shifts=((11, -7), (-13, 5)), border=56):
     return src, ref
 
 
-@pytest.mark.parametrize("rng_,subpel", [(16, 0), (16, 1), (16, 2), (7, 2),
-                                         (5, 1)])
+SEARCH_CASES = ((16, 0), (16, 1), (16, 2), (7, 2), (5, 1))
+SEARCH_OUT = ("mv_q", "pred_y", "pred_u", "pred_v")
+
+
+def jax_search(rng_, subpel):
+    """The JAX search on the case's frames (what
+    tools/make_torch_jax_refs.py commits as hier_<rng>_<subpel>_<name>)."""
+    src, ref = two_region_frames(seed=rng_ * 3 + subpel)
+    return _jax_search(*(jnp.asarray(a) for a in (*src, *ref)), rng_, subpel,
+                       "auto:hier")
+
+
+@pytest.mark.parametrize("rng_,subpel", SEARCH_CASES)
 def test_motion_search_and_mc_matches_jax(rng_, subpel):
     src, ref = two_region_frames(seed=rng_ * 3 + subpel)
     planes = (*src, *ref)
-    want = _jax_search(*(jnp.asarray(a) for a in planes), rng_, subpel,
-                       "auto:hier")
+    refs = torch_jax_refs.load("calls")
+    want = [refs[f"hier_{rng_}_{subpel}_{n}"] for n in SEARCH_OUT]
     got = tdev._motion_search_and_mc(*(torch.from_numpy(a) for a in planes),
                                      rng_, subpel, "auto:hier")
-    for name, g, w in zip(("mv_q", "pred_y", "pred_u", "pred_v"), got, want):
+    for name, g, w in zip(SEARCH_OUT, got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
     mv = got[0].numpy().reshape(-1, 2)
     # the search found both regions' motion (clipped to the range)

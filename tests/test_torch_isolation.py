@@ -85,14 +85,11 @@ def test_encoder_and_state_without_cuda_raise(no_cuda):
         state_from_numpy(z, z[:8, :8], z[:8, :8], frame_idx=1)
 
 
-@pytest.mark.parametrize("extra", ["", "--bframes 2", "--ref 2",
-                                   "--trellis 1", "--mbtree",
-                                   "--cabac", "--aq-mode 1", "--8x8dct"])
+@pytest.mark.parametrize("extra", ["", "--ref 2", "--trellis 1"])
 def test_out_of_slice_options_raise(extra):
-    """Options the port cannot encode raise: B frames, multi-ref and
-    trellis anywhere, MB-tree (a batched session), and on the batched
-    session CABAC, AQ and the 8x8 transform, which its P runs do not
-    carry yet."""
+    """Options the port cannot encode raise: multi-ref and trellis, on
+    the per-frame and the batched path (the default session asks for
+    both)."""
     from x264vfw_tpu_torch.api import CompressSession
     base = "" if extra == "" else "--preset ultrafast --me esa "
     s = CompressSession(extra_cmdline=(base + extra).strip() or "--qp 26",
@@ -101,30 +98,50 @@ def test_out_of_slice_options_raise(extra):
         s.begin(64, 48)
 
 
+def test_batched_pipeline_refuses_only_multi_ref():
+    """BatchPipeline itself takes every option but multi-ref."""
+    from x264vfw_tpu_torch.encode.pipeline import BatchPipeline
+    from x264vfw_tpu_torch.encode.ref_encoder import EncoderConfig
+    from x264vfw_tpu_torch.encode.torch_encoder import TorchEncoder
+    enc = TorchEncoder(EncoderConfig(width=64, height=48, bframes=3,
+                                     cabac=True, aq_strength=1.0,
+                                     dct8x8=True, i4x4=True, weightp=1,
+                                     scenecut=40), device="cpu")
+    BatchPipeline(enc, rc=None, mbtree=object())
+    enc.cfg.num_ref_frames = 2
+    with pytest.raises(NotImplementedError, match="multi-ref"):
+        BatchPipeline(enc, rc=None)
+
+
 @pytest.mark.parametrize("extra", ["--cabac", "--partitions i8x8",
                                    "--partitions p8x8,i4x4",
                                    "--aq-mode 1", "--weightp 1",
-                                   "--8x8dct", "--scenecut 40"])
+                                   "--8x8dct", "--scenecut 40",
+                                   "--bframes 2", "--mbtree --rc-lookahead 4"])
 def test_out_of_slice_options_now_run(extra):
     """Refused before CABAC, I4x4, AQ, weighted prediction, the 8x8
-    transform and scene cuts were ported; on the per-frame path they
-    begin and encode a frame now (--partitions i8x8 is taken and
-    ignored, as in the JAX package)."""
+    transform, scene cuts, B frames and MB-tree were ported; they begin
+    and encode a frame now (--partitions i8x8 is taken and ignored, as in
+    the JAX package).  B frames and MB-tree make the session batched,
+    whose frame comes out of end()."""
     from x264vfw_tpu_torch.api import CompressSession
     s = CompressSession(extra_cmdline="--preset ultrafast --tune zerolatency "
                         "--me esa " + extra, device="cpu")
     s.begin(32, 32)
-    assert s._pipe is None
+    batched = extra.startswith(("--bframes", "--mbtree"))
+    assert (s._pipe is not None) == batched
     au = s.compress((np.full((32, 32), 90, np.uint8),
                      np.full((16, 16), 128, np.uint8),
                      np.full((16, 16), 128, np.uint8)))
-    assert au and s.end()["frames"] == 1
+    end = s.end()
+    assert (au or end["tail"]) and end["frames"] == 1
     cfg = s.encoder.cfg
     assert cfg.i4x4 == ("i4x4" in extra)
     assert (cfg.cabac, cfg.aq_strength > 0, cfg.weightp, cfg.dct8x8,
-            cfg.scenecut) == ("--cabac" in extra, "--aq-mode" in extra,
-                              int("--weightp" in extra), "--8x8dct" in extra,
-                              40 if "--scenecut" in extra else 0)
+            cfg.scenecut, cfg.bframes, s.mbtree is not None) == (
+        "--cabac" in extra, "--aq-mode" in extra, int("--weightp" in extra),
+        "--8x8dct" in extra, 40 if "--scenecut" in extra else 0,
+        2 if "--bframes" in extra else 0, "--mbtree" in extra)
 
 
 def test_other_containers_raise():
@@ -137,13 +154,18 @@ def test_other_containers_raise():
 @pytest.mark.parametrize("extra,batched", [("", True),
                                            (" --tune zerolatency", False),
                                            (" --threads 1", False),
-                                           (" --me hex --subme 2", True)])
+                                           (" --me hex --subme 2", True),
+                                           (" --cabac", True),
+                                           (" --aq-mode 1", True),
+                                           (" --8x8dct", True)])
 def test_batched_session_runs(extra, batched):
     """A session the JAX package sends to BatchPipeline (no zero-latency
-    tune, --threads other than 1) now runs batched; zero-latency and
+    tune, --threads other than 1) runs batched; zero-latency and
     --threads 1 sessions run per frame there too.  --me hex and --subme
     without partitions, refused before the hierarchical search and the
-    16x16 sub-pel branch were ported, begin as well."""
+    16x16 sub-pel branch were ported, begin as well, and so do CABAC, AQ
+    and the 8x8 transform on the batched path, refused there before
+    this slice."""
     from x264vfw_tpu_torch.api import CompressSession
     s = CompressSession(extra_cmdline="--preset ultrafast --me esa --crf 23"
                         + extra, device="cpu")

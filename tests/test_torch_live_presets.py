@@ -199,8 +199,8 @@ def test_p_frames_from_converted_state(refs):
     qp = int(refs["cs_qp"])
     assert qp == CONVERT_QP
     for k, frame in enumerate(clip[CONVERT_AT:]):
-        (au, _, key), = enc.push_frame(*frame, qp_i=qp, qp_p=qp)
-        assert not key
+        (au, _, ftype), = enc.push_frame(*frame, qp_i=qp, qp_p=qp)
+        assert ftype == "P"
         assert au == refs[f"cs_au_{k}"].tobytes(), f"frame {k} differs"
         for a, p in zip(enc.ref, "yuv"):
             np.testing.assert_array_equal(a.numpy(), refs[f"cs_rec{k}_{p}"])

@@ -80,12 +80,27 @@ def _jax_minima(src, ref, R):
     return jip._minima_from_q(q, R)
 
 
-@pytest.mark.parametrize("qp", [12, 30])
-def test_decide_from_minima_matches_jax(qp):
-    H, W, R = 48, 64, 4
+DECIDE_QPS = (12, 30)
+DECIDE_HWR = (48, 64, 4)
+
+
+def jax_decide(qp):
+    """The JAX minima and decision on the case's frames (what
+    tools/make_torch_jax_refs.py commits as decide_<qp>_*)."""
+    H, W, R = DECIDE_HWR
     src, ref, _, _ = _frames(H, W, R, seed=qp)
     jm = _jax_minima(src, ref, R)
-    want_part, want_mv8 = jip.partition_decide_from_minima(jm, R, qp)
+    return jm, jip.partition_decide_from_minima(jm, R, qp)
+
+
+@pytest.mark.parametrize("qp", DECIDE_QPS)
+def test_decide_from_minima_matches_jax(qp):
+    """Against the JAX outputs committed in tests/jax_refs/calls.npz."""
+    H, W, R = DECIDE_HWR
+    src, ref, _, _ = _frames(H, W, R, seed=qp)
+    refs = torch_jax_refs.load("calls")
+    jm = {k: refs[f"decide_{qp}_min_{k}"] for k in tsad.NAMES}
+    want_part, want_mv8 = refs[f"decide_{qp}_part"], refs[f"decide_{qp}_mv8"]
     tm = tsad.sad_partition_minima(
         torch.from_numpy(src.astype(np.uint8)),
         torch.from_numpy(np.pad(ref, R, mode="edge").astype(np.uint8)), R)

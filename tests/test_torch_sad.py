@@ -2,7 +2,9 @@
 
 x264vfw_tpu_torch.ops.kernels.sad.sad_partition_minima_plain against
 x264vfw_tpu.ops.pallas.sad.sad_partition_minima run in interpret mode (as
-tests/test_pallas_sad.py runs it on the CPU), on all eight outputs.
+tests/test_pallas_sad.py runs it on the CPU), on all eight outputs; the
+kernel's interpret-mode outputs on these inputs are committed in
+tests/jax_refs/calls.npz (tools/make_torch_jax_refs.py, hash-guarded).
 Tolerance: none.  The CUDA kernel itself is held against the plain
 version on the card (the `cuda` test below and chip_smoke.py).
 """
@@ -11,6 +13,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+
+import torch_jax_refs
 
 from x264vfw_tpu.ops.pallas import sad as jsad
 from x264vfw_tpu_torch.ops.kernels import sad as tsad
@@ -22,12 +26,29 @@ def _planes(H, W, R, seed):
             rng.integers(0, 256, (H + 2 * R, W + 2 * R), dtype=np.uint8))
 
 
-@pytest.mark.parametrize("H,W,R", [(64, 80, 8), (48, 128, 4), (48, 320, 4)])
-def test_plain_matches_pallas_interpret(H, W, R):
+INTERPRET_CASES = ((64, 80, 8), (48, 128, 4), (48, 320, 4))
+
+
+def interpret_key(H, W, R):
+    """The case's prefix in calls.npz."""
+    return f"sad_{H}x{W}_{R}_"
+
+
+def pallas_interpret(H, W, R):
+    """The Pallas kernel in interpret mode on the case's planes (what
+    tools/make_torch_jax_refs.py commits)."""
     src, refp = _planes(H, W, R, seed=H + W + R)
-    want = jsad.sad_partition_minima(jnp.asarray(src, jnp.int32),
+    return jsad.sad_partition_minima(jnp.asarray(src, jnp.int32),
                                      jnp.asarray(refp, jnp.int32), R,
                                      interpret=True)
+
+
+@pytest.mark.parametrize("H,W,R", INTERPRET_CASES)
+def test_plain_matches_pallas_interpret(H, W, R):
+    src, refp = _planes(H, W, R, seed=H + W + R)
+    refs = torch_jax_refs.load("calls")
+    pre = interpret_key(H, W, R)
+    want = {k[len(pre):]: refs[k] for k in refs if k.startswith(pre)}
     got = tsad.sad_partition_minima(torch.from_numpy(src),
                                     torch.from_numpy(refp), R)
     assert set(got) == set(want)

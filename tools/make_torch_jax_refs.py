@@ -1,10 +1,11 @@
 """Write the JAX package's outputs that the port's session tests compare
-against (tests/jax_refs/{slice1,slice2,live,l3,l4}.npz).
+against (tests/jax_refs/{slice1,slice2,live,l3,l4,core,batched}.npz).
 
-    JAX_PLATFORMS=cpu python tools/make_torch_jax_refs.py
+    JAX_PLATFORMS=cpu python tools/make_torch_jax_refs.py [NAME ...]
 
-Run it from the repository root after any change to x264vfw_tpu/ or to
-those tests' inputs; test_torch_session.py::
+With NAMEs (e.g. batched), only those files are written.  Run it from the
+repository root after any change to x264vfw_tpu/ or to those tests'
+inputs; test_torch_session.py::
 test_jax_references_are_current names this script when the recorded
 source hash no longer matches.  Each file holds:
 
@@ -36,7 +37,26 @@ source hash no longer matches.  Each file holds:
     those tests' inputs.
   live.npz also holds the P cores of test_torch_aq_t8.py
   (pcore_<partitions>_<qp>_<output key>, and _lf_<plane> for the loop
-  filter over them).
+  filter over them);
+  * batched.npz (test_torch_batched_live.py, test_torch_bframes.py): per
+    line of the B-frame sessions every compress() return, the tail and
+    frames_info().delay (<line>_out_<i>, <line>_tail, <line>_delay); the
+    converted-state case of a per-frame B encoder (cs_*: config fields,
+    DPB, counters, POC base, display index, the pending frames' display
+    indices, last_mv, weight-analysis and scene-cut state, then the
+    (display index, is_idr) and access units of the frames after it);
+    the B cores (b<w>x<h>_<search>_<output key>), their slot rows, bit
+    counts and packed bytes (..._slot<t8_mode>_{vals,lens,bits,bytes});
+    and the P cores with MB-tree offsets (pq_aq<0|1>_p<0|1>_<key>);
+  * calls.npz (the single JAX calls of the older test files, so that
+    they do not compile on every run): the Pallas SAD kernel in interpret
+    mode (sad_<H>x<W>_<R>_<output>, test_torch_sad.py), the hierarchical
+    search (hier_<rng>_<subpel>_<output>, test_torch_hier.py), the
+    partition minima and decision (decide_<qp>_*,
+    test_torch_partitions.py), cavlc_jax.encode_blocks
+    (blocks_<maxc>_{vals,lens}, test_torch_cavlc_pack.py) and build_maps
+    with t8 and per-MB QPs (maps_<offA>_<offB>_<cqo>_<i>,
+    test_torch_aq_t8.py).
 """
 
 from __future__ import annotations
@@ -55,10 +75,13 @@ import dataclasses  # noqa: E402
 import jax  # noqa: E402
 
 import test_torch_aq_t8 as tq  # noqa: E402
+import test_torch_batched_live as tbl  # noqa: E402
+import test_torch_bframes as tbf  # noqa: E402
 import test_torch_cavlc_pack as tcp  # noqa: E402
 import test_torch_deblock as tdb  # noqa: E402
 import test_torch_encode_core as tec  # noqa: E402
 import test_torch_hier as th  # noqa: E402
+import test_torch_sad as tsd  # noqa: E402
 import test_torch_intra4x4 as ti  # noqa: E402
 import test_torch_live_presets as tl  # noqa: E402
 import test_torch_partitions as tp  # noqa: E402
@@ -66,6 +89,7 @@ import test_torch_pipeline as tpl  # noqa: E402
 import test_torch_session as ts  # noqa: E402
 import torch_jax_refs as refs  # noqa: E402
 from x264vfw_tpu.api import CompressSession  # noqa: E402
+from x264vfw_tpu.bitstream import cavlc_jax  # noqa: E402
 from x264vfw_tpu.encode import device as jdev  # noqa: E402
 from x264vfw_tpu.encode import device_finalize as jfin  # noqa: E402
 from x264vfw_tpu.encode.device_pack import pack_slots as jpack  # noqa: E402
@@ -236,9 +260,131 @@ def core_refs(digest) -> dict:
     return out
 
 
+def batched_refs(digest) -> dict:
+    out = {"source_sha256": digest}
+    for name, cmd in tbl.LINES.items():
+        s = CompressSession(extra_cmdline=cmd)
+        s.begin(tbl.W, tbl.H)
+        put_aus(out, f"{name}_out", [s.compress(f)
+                                     for f in tbl.batched_clip()])
+        out[f"{name}_tail"] = np.frombuffer(s.end()["tail"], np.uint8)
+        out[f"{name}_delay"] = s.frames_info().delay
+
+    # converted state: a per-frame B encoder after CONVERT_AT frames
+    clip = tbl.batched_clip()
+    s = CompressSession(extra_cmdline=tbl.CONVERT_LINE)
+    s.begin(tbl.W, tbl.H)
+    for f in clip[:tbl.CONVERT_AT]:
+        s.compress(f)
+    enc = s.encoder
+    assert s.mbtree is None and enc.pending and enc.last_mv is not None
+    for k, val in dataclasses.asdict(enc.cfg).items():
+        out[f"cs_cfg_{k}"] = np.asarray(val)
+    for k, p in zip("yuv", enc.ref):
+        out[f"cs_ref_{k}"] = np.asarray(p).astype(np.uint8)
+    out.update(cs_frame_idx=enc.frame_idx, cs_frame_num=enc.frame_num,
+               cs_idr_id=enc.idr_id, cs_poc=enc.poc,
+               cs_last_idr=enc._last_idr_d, cs_poc_base=enc.poc_base,
+               cs_display_idx=enc.display_idx,
+               cs_pending=np.asarray([p[3] for p in enc.pending]),
+               cs_last_mv=np.asarray(enc.last_mv), cs_wp_prev=enc._wp_prev,
+               cs_scenecut_prev=enc._scenecut.prev,
+               cs_scenecut_ema=enc._scenecut._ema)
+    qi, qp, qb = tbl.CONVERT_QPS
+    got = []
+    for f in clip[tbl.CONVERT_AT:tbl.CONVERT_AT + 6]:
+        got += enc.push_frame(*f, qp_i=qi, qp_p=qp, qp_b=qb)
+    got += enc.flush(qp_p=qp, qp_b=qb)
+    put_aus(out, "cs_au", [au for au, _, _ in got])
+    out["cs_order"] = np.asarray([(d, int(k)) for _, d, k in got])
+
+    bcore = jax.jit(jdev.encode_b_frame_core, static_argnames=(
+        "rng", "subpel", "me_backend", "decimate", "trellis", "want_recon",
+        "dct8x8"))
+    bfin = jax.jit(jfin._finalize_b_core, static_argnums=(3, 4, 5))
+    for w, h in tbf.GEOMS:
+        src, r0, r1, mvcol = tbf.b_case(w, h)
+        for mode in tbf.B_MODES:
+            me, sub, t8 = mode
+            key = tbf.b_key(w, h, mode)
+            res = bcore(*(jnp.asarray(p) for p in src + r0 + r1),
+                        jnp.asarray(mvcol), tbf.B_QP, tbf.B_QPC,
+                        rng=tbf.B_RNG, subpel=sub, me_backend=me,
+                        dct8x8=t8)
+            for k, a in res.items():
+                out[f"{key}_{k}"] = np.asarray(a)
+            for t8_mode in (False, True):
+                vals, lens = bfin(res, jnp.asarray(tbf.HDR_VALS, jnp.uint32),
+                                  jnp.asarray(tbf.HDR_LENS, jnp.int32),
+                                  h // 16, w // 16, t8_mode)
+                sk = f"{key}_slot{int(t8_mode)}"
+                out[f"{sk}_vals"] = np.asarray(vals).astype(np.int64)
+                out[f"{sk}_lens"] = np.asarray(lens)
+                data, bits = jpack(vals, lens,
+                                   (int(np.asarray(lens).sum()) + 31) // 32
+                                   + 4)
+                out[f"{sk}_bits"] = int(bits)
+                out[f"{sk}_bytes"] = np.asarray(data)[:(int(bits) + 7) // 8]
+
+    pcore = jax.jit(jdev.encode_p_frame_core, static_argnames=(
+        "rng", "subpel", "me_backend", "aq_strength", "qpc_offset",
+        "decimate", "trellis", "partitions", "dct8x8"))
+    cur, ref, offs = tbf.pq_case()
+    for aq, parts in tbf.QP_OFF_CASES:
+        res = pcore(*(jnp.asarray(a) for a in cur + ref), 26, 26, rng=16,
+                    subpel=1, me_backend="auto:hier", aq_strength=aq,
+                    qp_off=jnp.asarray(offs), partitions=parts, dct8x8=True)
+        for k, a in res.items():
+            out[f"{tbf.pq_key(aq, parts)}_{k}"] = np.asarray(a)
+    return out
+
+
+def calls_refs(digest) -> dict:
+    out = {"source_sha256": digest}
+    for H, W, R in tsd.INTERPRET_CASES:
+        for k, a in tsd.pallas_interpret(H, W, R).items():
+            out[tsd.interpret_key(H, W, R) + k] = np.asarray(a)
+    for rng_, subpel in th.SEARCH_CASES:
+        for name, a in zip(th.SEARCH_OUT, th.jax_search(rng_, subpel)):
+            out[f"hier_{rng_}_{subpel}_{name}"] = np.asarray(a)
+    for qp in tp.DECIDE_QPS:
+        jm, (part, mv8) = tp.jax_decide(qp)
+        for k, a in jm.items():
+            out[f"decide_{qp}_min_{k}"] = np.asarray(a)
+        out[f"decide_{qp}_part"] = np.asarray(part)
+        out[f"decide_{qp}_mv8"] = np.asarray(mv8)
+    enc = jax.jit(cavlc_jax.encode_blocks, static_argnums=(2,))
+    for maxc, ncs in tcp.BLOCK_CASES:
+        lv, nc = tcp.blocks_case(maxc, ncs)
+        vals, lens = enc(jnp.asarray(lv), jnp.asarray(nc), maxc)
+        out[f"blocks_{maxc}_vals"] = np.asarray(vals).astype(np.int64)
+        out[f"blocks_{maxc}_lens"] = np.asarray(lens)
+    meta, t8 = tq.maps_case()
+    maps = jax.jit(jdb.build_maps, static_argnums=(5, 6, 7))
+    for offA, offB, cqo in tq.MAPS_OFFSETS:
+        res = maps(*(jnp.asarray(a) for a in meta), offA, offB, cqo,
+                   t8_4=jnp.asarray(t8))
+        for i, a in enumerate(res):
+            out[f"maps_{offA}_{offB}_{cqo}_{i}"] = np.asarray(a)
+    return out
+
+
+MAKERS = {"live": live_refs, "l3": l3_refs, "l4": l4_refs,
+          "core": core_refs, "batched": batched_refs, "calls": calls_refs}
+
+
 def main() -> int:
     digest = np.asarray(refs.source_hash())
     os.makedirs(refs.REF_DIR, exist_ok=True)
+    only = sys.argv[1:]
+    unknown = set(only) - set(MAKERS)
+    if unknown:
+        raise SystemExit(f"unknown reference files: {sorted(unknown)}")
+    if only:
+        for name in only:
+            np.savez_compressed(refs.path(name), **MAKERS[name](digest))
+            print(refs.path(name), os.path.getsize(refs.path(name)), "bytes")
+        return 0
 
     s1 = {"source_sha256": digest}
     for w, h in ts.GEOMS:
@@ -254,8 +400,7 @@ def main() -> int:
                                      ts.moving_clip(64, 48, 3, seed=64)))
     s2.update(p_frame(*tp.converted_state_case()))
     np.savez_compressed(refs.path("slice2"), **s2)
-    for name, make in (("live", live_refs), ("l3", l3_refs),
-                       ("l4", l4_refs), ("core", core_refs)):
+    for name, make in MAKERS.items():
         np.savez_compressed(refs.path(name), **make(digest))
     for name in refs.NAMES:
         print(refs.path(name), os.path.getsize(refs.path(name)), "bytes")

@@ -1,7 +1,8 @@
 """Where a frame's time goes in the PyTorch/CUDA port, on one CUDA card.
 
     python3 tools/torch_profile_frames.py [--width 1920 --height 1080]
-                                          [--parts | --l4 | --veryfast]
+                                          [--parts | --l4 | --veryfast |
+                                           --batched]
                                           [--out profile.jsonl]
 
 Encodes a textured clip moving by a known shift with the port's
@@ -29,6 +30,14 @@ host CABAC transcode.  With --l4 a last line gives the
 kernel launches and device ms of the hierarchical search, the sub-pel
 step and the chroma MC of one P frame, each run 10 times under the
 profiler alone, per run.
+With --batched the line is x264's --preset veryfast --crf 23 on the
+batched session (B frames, MB-tree): 27 frames, of which the first 22
+are pushed unprofiled (the I frame and the first window's dispatch), then
+the last 5 pushes and end() are profiled as one span: the flush's run of
+15 frames (P anchors and B frames), the packing and the host CABAC
+transcode of both windows; one JSON line as above for that span, with
+the types of the AUs it emits (window one's among them, encoded
+before the span).
 --out also writes the lines to a file.
 """
 
@@ -53,6 +62,7 @@ PARTS = " --deblock 0:0 --partitions p8x8 --subme 7"
 L4 = ("--preset ultrafast --tune zerolatency --qp 26 --subme 7 "
       "--deblock 0:0 --keyint 2")
 VERYFAST = "--preset veryfast --tune zerolatency --crf 23 --keyint 2"
+BATCHED = "--preset veryfast --crf 23"
 
 
 def clip(w: int, h: int, frames: int, shift=(3, -2), seed: int = 1):
@@ -203,6 +213,50 @@ def stage_lines(enc, prev, cur, card) -> list[str]:
     return out
 
 
+def device_summary(prof):
+    """(summed CUDA kernel ms, kernel launches, the top 8 kernels by
+    device ms) of a torch.profiler run."""
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return (sum(by_name.values()) / 1e3, len(kern),
+            [[k[:80], v / 1e3] for k, v in top])
+
+
+def batched_line(w: int, h: int, card: str) -> str:
+    """The profiled span of the batched veryfast session (module doc)."""
+    from x264vfw_tpu_torch.api import CompressSession
+    frames = clip(w, h, 27)
+    s = CompressSession(extra_cmdline=BATCHED)
+    s.begin(w, h)
+    types = []
+    emit = s._emit
+    s._emit = lambda outs, *a, **k: types.extend(
+        it[3] for it in outs) or emit(outs, *a, **k)
+    for f in frames[:22]:
+        s.compress(f)
+    torch.cuda.synchronize()
+    before = len(types)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        for f in frames[22:]:
+            s.compress(f)
+        s.end()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t) * 1e3
+    dev_ms, launches, top = device_summary(prof)
+    return json.dumps({
+        "span": "pushes 22-26 and end()", "batched": True,
+        "emitted_in_span": "".join(types[before:]), "wall_ms": wall_ms,
+        "device_ms": dev_ms, "busy_share": dev_ms / wall_ms,
+        "kernel_launches": launches, "top_device_ms": top,
+        "card": card, "size": [w, h]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--width", type=int, default=1920)
@@ -215,6 +269,9 @@ def main() -> int:
     ap.add_argument("--veryfast", action="store_true",
                     help="x264's live line: --preset veryfast --tune "
                     "zerolatency --crf 23")
+    ap.add_argument("--batched", action="store_true",
+                    help="x264's VOD line on the batched session: --preset "
+                    "veryfast --crf 23 (B frames, MB-tree)")
     ap.add_argument("--out", help="also write the JSON lines to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -225,6 +282,15 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=10).stdout.strip()
+    if args.batched:
+        lines = [batched_line(args.width, args.height, card)]
+        print(lines[0], flush=True)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as fh:
+                fh.write(lines[0] + "\n")
+        return 0
     frames = clip(args.width, args.height, 6,
                   shift=(9, -6) if args.l4 else (3, -2))
     s = CompressSession(extra_cmdline=L4 if args.l4 else VERYFAST
@@ -245,17 +311,10 @@ def main() -> int:
             s.compress(f)
             torch.cuda.synchronize()
             wall_ms = (time.time() - t) * 1e3
-        kern = [e for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        by_name = {}
-        for e in kern:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-        dev_ms = sum(by_name.values()) / 1e3
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        dev_ms, launches, top = device_summary(prof)
         line = {"frame": i + 2, "type": ftype, "wall_ms": wall_ms,
                 "device_ms": dev_ms, "busy_share": dev_ms / wall_ms,
-                "kernel_launches": len(kern),
-                "top_device_ms": [[k[:80], v / 1e3] for k, v in top],
+                "kernel_launches": launches, "top_device_ms": top,
                 "card": card, "size": [args.width, args.height],
                 "parts": args.parts, "l4": args.l4,
                 "veryfast": args.veryfast}

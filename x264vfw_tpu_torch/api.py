@@ -11,20 +11,22 @@ The session owns config resolution (presets/flags), the encoder, the
 muxer, pts/dts bookkeeping and error stickiness.  It runs on the CUDA
 device unless built with device="cpu".
 
-The port encodes x264's --preset ultrafast: I16x16 + P16x16 CAVLC, one
-reference, the hierarchical integer search of --me dia/hex/umh or the
-exhaustive one of --me esa/tesa; and on top of it --subme 1-11
-(half/quarter-pel refinement), --deblock (the in-loop filter),
---partitions p8x8 (16x16/16x8/8x16/8x8 P partitions) and i4x4 (I_NxN;
-i8x8 is taken and ignored, as in the JAX package), and on the per-frame
-path --cabac (a host transcode of the CAVLC slice), --8x8dct, --aq-mode,
---weightp and --scenecut: x264's --preset veryfast and superfast with
---tune zerolatency.  A zero-latency session (--tune zerolatency) or one
-with --threads 1 encodes frame by frame; any other goes through the
-batched pipeline (encode/pipeline.py, windows of 12 frames, ultrafast's
-options only), as in the JAX package.  Options outside it raise
-NotImplementedError naming the ROADMAP queue; the session never encodes
-something other than what was asked.
+The port encodes with one reference: I16x16 and I_NxN (--partitions
+i4x4; i8x8 is taken and ignored, as in the JAX package), P16x16 or the
+8x8-grid P partitions (--partitions p8x8) found by the hierarchical
+search of --me dia/hex/umh or the exhaustive one of --me esa/tesa and
+refined to half or quarter pel (--subme), non-reference B frames
+(--bframes) with spatial direct and B_Skip, the loop filter (--deblock),
+CABAC (a host transcode of the CAVLC slice), the 8x8 transform, AQ,
+weighted P prediction, scene cuts and MB-tree (--mbtree, --rc-lookahead):
+x264's --preset ultrafast, superfast and veryfast, with or without
+--tune zerolatency.  A zero-latency session (no B frames, no MB-tree,
+--tune zerolatency) or one with --threads 1 encodes frame by frame; any
+other goes through the batched pipeline (encode/pipeline.py, windows of
+12 frames), as in the JAX package.  Options outside it (multi-ref,
+trellis, --threads > 1, --psnr/--ssim) raise NotImplementedError naming
+the ROADMAP queue; the session never encodes something other than what
+was asked.
 """
 
 from __future__ import annotations
@@ -81,8 +83,7 @@ def _out_of_slice(p: EncoderParams) -> list[str]:
     """Requested options this port cannot encode yet (the batched
     pipeline refuses more: encode/pipeline.BatchPipeline)."""
     return [name for name, on in (
-        ("--bframes", p.bframes > 0), ("--ref > 1", p.ref > 1),
-        ("--trellis", p.trellis > 0), ("--mbtree", bool(p.mbtree)),
+        ("--ref > 1", p.ref > 1), ("--trellis", p.trellis > 0),
         ("--threads > 1 (multi-device)", p.threads > 1),
         ("--psnr/--ssim", bool(p.psnr or p.ssim)),
     ) if on]
@@ -103,6 +104,7 @@ class CompressSession:
             self.log.warning(w)
         self.encoder: TorchEncoder | None = None
         self._pipe = None          # BatchPipeline when the session batches
+        self.mbtree = None         # encode/lookahead.MBTree with --mbtree
         self.muxer: Muxer | None = None
         self.error = False         # sticky b_encoder_error
         self.frame_count = 0
@@ -129,6 +131,7 @@ class CompressSession:
                 f"not ported yet: {', '.join(missing)} (ROADMAP.md, queue A)")
         self.rc = RateController(p)
         qp = self.rc.qp_for_frame(True)
+        bframes = min(p.bframes, 16)
         if p.nal_hrd in ("vbr", "cbr") and not (p.vbv_maxrate > 0
                                                 and p.vbv_bufsize > 0):
             self.log.warning("--nal-hrd requires --vbv-maxrate and "
@@ -143,7 +146,7 @@ class CompressSession:
             search_range=min(p.merange, 16),
             # --subme ladder: 0 = integer-pel, 1-3 = half, 4+ = quarter
             subpel=0 if p.subme == 0 else (1 if p.subme <= 3 else 2),
-            cabac=p.cabac,
+            bframes=bframes, cabac=p.cabac,
             aq_strength=float(p.aq_strength) if p.aq_mode else 0.0,
             trellis=p.trellis > 0,
             partitions=_p_partitions(p),
@@ -167,15 +170,25 @@ class CompressSession:
                                  else ""),
         ), device=self.device)
         self._encode_idx = 0
+        self._delay = 1 if bframes else 0
+        # MB-tree (--mbtree, --rc-lookahead): holds rc_lookahead display-
+        # order frames back and attaches per-MB QP offsets to each
+        self.mbtree = None
+        if p.mbtree and p.rc_lookahead > 0:
+            from .encode.lookahead import MBTree
+            self.mbtree = MBTree((width + 15) // 16, (height + 15) // 16,
+                                 lookahead=min(p.rc_lookahead, 60),
+                                 qcomp=p.qcomp)
         # the batched pipeline unless the session is zero-latency (no B
         # frames, no MB-tree, --tune zerolatency's sync_lookahead 0) or
-        # --threads 1, which keep the per-frame 1:1 compress->output
-        # contract (--threads > 1 and --psnr/--ssim are refused above)
+        # --threads 1, which keep the per-frame path (--threads > 1 and
+        # --psnr/--ssim are refused above)
         zero_latency = (p.bframes == 0 and not p.mbtree
                         and p.sync_lookahead == 0)
         if p.threads != 1 and not zero_latency:
             from .encode.pipeline import BatchPipeline
-            self._pipe = BatchPipeline(self.encoder, self.rc, window=12)
+            self._pipe = BatchPipeline(self.encoder, self.rc,
+                                       mbtree=self.mbtree, window=12)
         if output is not None:
             self.muxer = select_muxer(
                 output if isinstance(output, str) else "", container)
@@ -193,9 +206,11 @@ class CompressSession:
     # ---------------------------------------------------------- compress
     def compress(self, frame, fmt: str = "i420") -> bytes:
         """frame: (y, u, v) uint8 planes.  Returns the Annex-B access units
-        emitted for this input: one per frame on the per-frame path; on
-        the batched path b"" until the second window fills, then a whole
-        window's (frames_info().delay)."""
+        emitted for this input, in decode order: on the per-frame path one
+        per frame, or with B frames b"" while a frame waits for its anchor
+        (and while MB-tree fills its lookahead); on the batched path b""
+        until the second window fills, then a whole window's
+        (frames_info().delay)."""
         if self.error:
             raise RuntimeError("encoder in error state")
         if self.encoder is None:
@@ -212,18 +227,29 @@ class CompressSession:
                 raise
             self.frame_count += 1
             return self._emit(outs)
-        qp_i = self.rc.qp_for_type("I")
-        qp_p = self.rc.qp_for_type("P")
+        qps = {t: self.rc.qp_for_type(t) for t in "IPB"}
         try:
             y, u, v = frame
-            outs = self.encoder.push_frame(y, u, v, qp_i=qp_i, qp_p=qp_p)
+            if self.mbtree is not None:
+                outs = []
+                for (fy, fu, fv), off in self.mbtree.push((y, u, v), y):
+                    outs += self.encoder.push_frame(
+                        fy, fu, fv, qp_i=qps["I"], qp_p=qps["P"],
+                        qp_b=qps["B"], qp_off=off)
+            else:
+                outs = self.encoder.push_frame(y, u, v, qp_i=qps["I"],
+                                               qp_p=qps["P"], qp_b=qps["B"])
         except Exception:
             self.error = True
             raise
         self.frame_count += 1
-        return self._emit([(au, pts, key, "I" if key else "P",
-                            qp_i if key else qp_p)
-                           for au, pts, key in outs], rc_done=False)
+        return self._emit(self._typed(outs, qps), rc_done=False)
+
+    @staticmethod
+    def _typed(outs, qps: dict) -> list:
+        """(au, pts, ftype) from the per-frame encoder -> (au, pts, is_idr,
+        ftype, the QP it was given)."""
+        return [(au, pts, t == "I", t, qps[t]) for au, pts, t in outs]
 
     def _emit(self, outs, rc_done: bool = True) -> bytes:
         """outs: (au, pts, is_idr, ftype, qp) in decode order.  rc_done:
@@ -233,8 +259,8 @@ class CompressSession:
         for au, pts, key, ftype, qp in outs:
             if self.params.aud:
                 # access-unit delimiter, first NAL of the AU (§7.4.2.4);
-                # primary_pic_type 0=I, 1=I/P
-                ppt = {"I": 0, "P": 1}[ftype]
+                # primary_pic_type 0 = I, 1 = I/P, 2 = I/P/B
+                ppt = {"I": 0, "P": 1, "B": 2}[ftype]
                 au = (START_CODE_LONG + bytes([0x09, (ppt << 5) | 0x10])
                       + au)
             if not rc_done:
@@ -247,8 +273,9 @@ class CompressSession:
             self._bits_total += len(au) * 8
             if self.muxer is not None:
                 payload, k = _strip_parameter_sets(au)
-                self.muxer.write_frame(payload, pts=pts, dts=self._encode_idx,
-                                       keyframe=k)
+                # B frames come out after their anchor: dts lags by one
+                dts = max(0, self._encode_idx - self._delay)
+                self.muxer.write_frame(payload, pts=pts, dts=dts, keyframe=k)
             self._encode_idx += 1
             result += au
         return result
@@ -260,6 +287,18 @@ class CompressSession:
         tail = b""
         if self._pipe is not None and not self.error:
             tail = self._emit(self._pipe.flush())
+        elif self.encoder is not None and not self.error:
+            if self.mbtree is not None:
+                for (fy, fu, fv), off in self.mbtree.flush():
+                    qps = {t: self.rc.qp_for_type(t) for t in "IPB"}
+                    tail += self._emit(self._typed(self.encoder.push_frame(
+                        fy, fu, fv, qp_i=qps["I"], qp_p=qps["P"],
+                        qp_b=qps["B"], qp_off=off), qps), rc_done=False)
+            qp_p = self.rc.qp_for_type("P")
+            qp_b = self.rc.qp_for_type("B")
+            tail += self._emit(self._typed(
+                self.encoder.flush(qp_p=qp_p, qp_b=qp_b),
+                {"I": qp_p, "P": qp_p, "B": qp_b}), rc_done=False)
         if self.muxer is not None:
             self.muxer.close_file(self._largest, self._second)
             self.muxer = None
@@ -278,10 +317,14 @@ class CompressSession:
         return stats
 
     def frames_info(self) -> FramesInfo:
-        # double-buffered windows: a frame can wait one full window in the
-        # queue plus one window in flight before its AU is emitted
-        return FramesInfo(delay=0 if self._pipe is None
-                          else 2 * self._pipe.window - 1)
+        """The most frames an input can wait before its AU comes out: the
+        B frames, MB-tree's lookahead and, batched, the double-buffered
+        windows (one full window in the queue plus one in flight)."""
+        p = self.params
+        look = (min(p.rc_lookahead, 60)
+                if p.mbtree and p.rc_lookahead > 0 else 0)
+        win = 0 if self._pipe is None else 2 * self._pipe.window - 1
+        return FramesInfo(delay=min(p.bframes, 16) + look + win)
 
 
 def _strip_parameter_sets(au: bytes) -> tuple[bytes, bool]:

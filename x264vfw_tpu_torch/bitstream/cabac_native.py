@@ -1,6 +1,6 @@
 """ctypes loader for the host CABAC slice coder (csrc/host/cabac_ext.c).
 
-Port of the P and I parts of x264vfw_tpu/bitstream/cabac_native.py: one
+Port of x264vfw_tpu/bitstream/cabac_native.py (P, B and I slices): one
 call codes a whole slice's data from its syntax arrays.  The library is
 built with gcc into _build/ at first use (ops/kernels/build.py); a failed
 build raises, and there is no Python fallback.
@@ -24,6 +24,9 @@ def _lib():
         [_I] * 4 + [_P] * 4 + [_I] + [_P] * 9 + [_I, _P, _L])
     lib.cabac_encode_i_slice.restype = _L
     lib.cabac_encode_i_slice.argtypes = [_I] * 3 + [_P] * 15 + [_I, _P, _L]
+    lib.cabac_encode_b_slice.restype = _L
+    lib.cabac_encode_b_slice.argtypes = (
+        [_I] * 4 + [_P] * 11 + [_I, _P, _P, _L])
     return lib
 
 
@@ -63,6 +66,24 @@ def encode_p_slice(qp, init_idc, mbh, mbw, skip, mvd, cbp_l, cbp_c,
     return _call(_lib().cabac_encode_p_slice, max(1 << 16, n * 800),
                  qp, init_idc, mbh, mbw, *a, ctypes.c_int(int(nref)), *b,
                  ctypes.c_int(int(t8_mode)))
+
+
+def encode_b_slice(qp, init_idc, mbh, mbw, skip, mode, mvd0, mvd1,
+                   cbp_l, cbp_c, levels, dc_u, dc_v, ac_u, ac_v,
+                   t8_mode: bool, t8) -> bytes:
+    """B slice of 16x16 modes: skip (n,) B_Skip flags; mode (n,) the
+    mb_type 0..3 (0 = B_Direct_16x16); mvd0/mvd1 (n, 2) per list; the
+    residual arrays cbp-masked; t8 (n,) transform_size_8x8_flag when
+    t8_mode."""
+    n = mbh * mbw
+    holds: list = []
+    a = _ptrs(holds, ((skip, np.uint8), (mode, np.int32), (mvd0, np.int32),
+                      (mvd1, np.int32), (cbp_l, np.int32), (cbp_c, np.int32),
+                      (levels, np.int32), (dc_u, np.int32), (dc_v, np.int32),
+                      (ac_u, np.int32), (ac_v, np.int32)))
+    t8p, = _ptrs(holds, ((t8, np.uint8),))
+    return _call(_lib().cabac_encode_b_slice, max(1 << 16, n * 800),
+                 qp, init_idc, mbh, mbw, *a, ctypes.c_int(int(t8_mode)), t8p)
 
 
 def encode_i_slice(qp, mbh, mbw, i16mode, cmode, acflag, cbp_c,

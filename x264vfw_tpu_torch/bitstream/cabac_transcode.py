@@ -1,12 +1,13 @@
 """CAVLC -> CABAC entropy transcode of one slice (host).
 
-Port of the I and P branches of x264vfw_tpu/bitstream/cabac_transcode.py.
+Port of x264vfw_tpu/bitstream/cabac_transcode.py (I, P and B slices).
 The device phase writes a complete CAVLC slice (encode/device_finalize);
 with --cabac the host re-codes it: the C parser (native_parse, from
 csrc/host/cavlc_parse.c) reads its syntax elements back and the C CABAC
 coder (cabac_native, from csrc/host/cabac_ext.c) writes them again.  Two
-passes over bitstream-sized data, no syntax-tensor pull.  B slices wait
-for the port of B frames.
+passes over bitstream-sized data, no syntax-tensor pull.  The C passes
+release the GIL, so the batched session runs a window's transcodes in a
+thread pool.
 """
 
 from __future__ import annotations
@@ -34,17 +35,28 @@ def transcode_slice(payload: np.ndarray, hdr_bits: int, slice_type: str,
                     t8_mode: bool = False) -> bytes | None:
     """Re-code one CAVLC slice RBSP (header + data) as a CABAC slice.
 
-    payload: uint8 RBSP.  slice_type: "I" or "P".  qp: the slice QP.
+    payload: uint8 RBSP.  slice_type: "I", "P" or "B".  qp: the slice QP.
     Returns the CABAC slice RBSP (the same header, aligned, then the
     re-coded data), or None when the slice has syntax the coder does not
     take: intra MBs or sub-8x8 partitions in a P slice, per-partition
     references, an I slice with a per-MB QP, or a parse failure."""
-    if slice_type not in ("I", "P"):
-        raise NotImplementedError(
-            f"CABAC transcode of {slice_type} slices is not ported yet "
-            "(ROADMAP.md, queue A)")
+    if slice_type not in ("I", "P", "B"):
+        raise ValueError(f"unknown slice type {slice_type!r}")
     payload = np.ascontiguousarray(payload, np.uint8)
     hdr = _header_bytes(payload, hdr_bits)
+    if slice_type == "B":
+        syn = native_parse.parse_b_slice(payload, hdr_bits, mbh, mbw, qp,
+                                         transform_8x8=t8_mode)
+        if syn is None:
+            return None
+        mode = syn["mode"].astype(np.int32)
+        cdc, cac = syn["cdc"], syn["cac"]
+        body = cn.encode_b_slice(
+            qp, 0, mbh, mbw, (mode < 0).astype(np.uint8),
+            np.maximum(mode, 0), syn["mvd0"], syn["mvd1"], syn["cbp_luma"],
+            syn["cbp_chroma"], syn["lvl16"], cdc[:, 0], cdc[:, 1],
+            cac[:, 0], cac[:, 1], t8_mode, syn["t8"])
+        return hdr + body
     syn = native_parse.parse_slice(payload, hdr_bits,
                                    0 if slice_type == "P" else 2, mbh, mbw,
                                    qp, nref, t8_mode)

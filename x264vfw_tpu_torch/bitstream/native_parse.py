@@ -1,10 +1,11 @@
 """ctypes loader for the host CAVLC slice parser (csrc/host/cavlc_parse.c).
 
-Port of the parse_slice loader of x264vfw_tpu/decode/native_parse.py, as
-the CABAC transcode (bitstream/cabac_transcode.py) uses it: one CAVLC I or
-P slice's data -> the syntax arrays, with the raw syntax elements the
-transcoder re-codes (mvd per quadrant, partition kind, I4x4 mode flags,
-mb_qp_delta, transform_size_8x8_flag).  The library is built with gcc
+Port of the parse_slice and parse_b_slice loaders of
+x264vfw_tpu/decode/native_parse.py, as the CABAC transcode
+(bitstream/cabac_transcode.py) uses them: one CAVLC I, P or B slice's
+data -> the syntax arrays, with the raw syntax elements the transcoder
+re-codes (mvd per quadrant or per list, partition kind, B mode, I4x4 mode
+flags, mb_qp_delta, transform_size_8x8_flag).  The library is built with gcc
 into _build/ at first use (ops/kernels/build.py); a failed build raises.
 """
 
@@ -27,6 +28,11 @@ def _lib():
         lib.cavlc_parse_slice.argtypes = (
             [ctypes.c_void_p, ctypes.c_long, ctypes.c_long]
             + [ctypes.c_int] * 6 + [ctypes.c_void_p] * (1 + len(_OUT + _RAW)))
+        lib.cavlc_parse_b_slice.restype = ctypes.c_long
+        lib.cavlc_parse_b_slice.argtypes = (
+            [ctypes.c_void_p, ctypes.c_long, ctypes.c_long]
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p] * (1 + len(_B_OUT))
+            + [ctypes.c_int, ctypes.c_void_p])
         _luts = build_luts()
     return lib
 
@@ -43,6 +49,11 @@ _RAW = (("mvdq", (4, 2), np.int16), ("refq", (4,), np.int8),
         ("part", (), np.int8), ("i4prev", (16,), np.uint8),
         ("i4rem", (16,), np.int8), ("qpd", (), np.int8),
         ("t8", (), np.uint8))
+_B_OUT = (("mode", (), np.int8), ("mvd0", (2,), np.int16),
+          ("mvd1", (2,), np.int16), ("cbp_luma", (), np.int32),
+          ("cbp_chroma", (), np.int32), ("lvl16", (16, 16), np.int16),
+          ("cdc", (2, 4), np.int16), ("cac", (2, 4, 15), np.int16),
+          ("qpd", (), np.int8))
 
 
 def parse_slice(rbsp: np.ndarray, bitpos: int, slice_type: int,
@@ -61,5 +72,27 @@ def parse_slice(rbsp: np.ndarray, bitpos: int, slice_type: int,
             int(transform_8x8), _luts.ctypes.data_as(ctypes.c_void_p)]
     args += [o[k].ctypes.data_as(ctypes.c_void_p) for k, _, _ in _OUT + _RAW]
     if lib.cavlc_parse_slice(*args) != n:
+        return None
+    return o
+
+
+def parse_b_slice(rbsp: np.ndarray, bitpos: int, mbh: int, mbw: int,
+                  qp_init: int, transform_8x8: bool = False):
+    """Parse one CAVLC B slice's data (the encoder's B slices: 16x16
+    modes, direct and skip) from bit `bitpos` of the RBSP.  Returns a
+    dict of raw syntax arrays ('mode' -1 for B_Skip, else the mb_type
+    0..3; 'mvd0'/'mvd1' per list; cbp, levels, chroma, 'qpd', 't8'), or
+    None on a parse failure or syntax outside the parser's scope."""
+    lib = _lib()
+    n = mbh * mbw
+    rbsp = np.ascontiguousarray(rbsp, np.uint8)
+    o = {k: np.zeros((n,) + shape, dt) for k, shape, dt in _B_OUT}
+    o["t8"] = np.zeros(n, np.uint8)
+    args = [rbsp.ctypes.data_as(ctypes.c_void_p), ctypes.c_long(rbsp.size),
+            ctypes.c_long(bitpos), mbh, mbw, qp_init,
+            _luts.ctypes.data_as(ctypes.c_void_p)]
+    args += [o[k].ctypes.data_as(ctypes.c_void_p) for k, _, _ in _B_OUT]
+    args += [int(transform_8x8), o["t8"].ctypes.data_as(ctypes.c_void_p)]
+    if lib.cavlc_parse_b_slice(*args) != n:
         return None
     return o

@@ -8,7 +8,7 @@ arrays, so nothing here imports the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -42,12 +42,19 @@ class EncoderState:
     #                                     previous input luma (_wp_prev)
     scenecut_prev: np.ndarray | None = None   # SceneCut.prev
     scenecut_ema: float | None = None         # SceneCut._ema
+    # with B frames: the frames waiting for the next anchor, as (y, u, v,
+    # display index) numpy planes, the last anchor's colocated field (n,
+    # 2), and the display index of the next frame (None: frame_idx)
+    pending: list = field(default_factory=list)
+    last_mv: np.ndarray | None = None
+    display_idx: int | None = None
 
 
 def state_from_numpy(ref_y: np.ndarray, ref_u: np.ndarray, ref_v: np.ndarray,
                      frame_idx: int, poc: int = 0, frame_num: int | None = None,
                      idr_id: int = 1, last_idr: int = 0, poc_base: int = 0,
                      wp_prev=None, scenecut_prev=None, scenecut_ema=None,
+                     pending=(), last_mv=None, display_idx=None,
                      device=None) -> EncoderState:
     """Decoded picture buffer + frame counters from numpy arrays.
 
@@ -55,7 +62,10 @@ def state_from_numpy(ref_y: np.ndarray, ref_u: np.ndarray, ref_v: np.ndarray,
     the JAX encoder keeps them (TpuEncoder.ref).  frame_num defaults to
     frame_idx - last_idr (frames since the IDR, no B frames).  wp_prev is
     the JAX encoder's _wp_prev (--weightp), scenecut_prev and
-    scenecut_ema its scene-cut detector's prev and _ema (--scenecut)."""
+    scenecut_ema its scene-cut detector's prev and _ema (--scenecut).
+    With B frames: pending is the JAX encoder's pending list ((y, u, v,
+    display index) each), last_mv its last_mv and display_idx its
+    display_idx."""
     dev = resolve_device(device)
     ref = tuple(torch.as_tensor(np.asarray(p, np.int32), device=dev)
                 for p in (ref_y, ref_u, ref_v))
@@ -71,4 +81,8 @@ def state_from_numpy(ref_y: np.ndarray, ref_u: np.ndarray, ref_v: np.ndarray,
         wp_prev=None if wp_prev is None else np.asarray(wp_prev, np.float32),
         scenecut_prev=(None if scenecut_prev is None
                        else np.asarray(scenecut_prev, np.float32)),
-        scenecut_ema=None if scenecut_ema is None else float(scenecut_ema))
+        scenecut_ema=None if scenecut_ema is None else float(scenecut_ema),
+        pending=[(*(np.asarray(p, np.uint8) for p in f[:3]), int(f[3]))
+                 for f in pending],
+        last_mv=None if last_mv is None else np.asarray(last_mv, np.int32),
+        display_idx=None if display_idx is None else int(display_idx))

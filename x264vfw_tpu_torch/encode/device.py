@@ -6,9 +6,11 @@ I16x16 with chroma intra, and with --partitions i4x4 the I_NxN candidate
 (encode/intra4x4.py); P with one reference, either P16x16 (found by the
 hierarchical or the exhaustive search, then optionally refined to half
 or quarter pel) or the 8x8-grid partitions with half/quarter-pel
-refinement (encode/inter_partition.py), with per-MB variance AQ, the
-per-MB 4x4-vs-8x8 transform decision and explicit weighted prediction;
-and the in-loop deblock of the reconstruction.  Every function is batched
+refinement (encode/inter_partition.py), with per-MB variance AQ, MB-tree
+QP offsets, the per-MB 4x4-vs-8x8 transform decision and explicit
+weighted prediction; non-reference B with one reference per list (L0,
+L1 and Bi 16x16, spatial direct and B_Skip); and the in-loop deblock of
+the reconstruction.  Every function is batched
 over macroblocks; sample arithmetic is int32 (int16 where the JAX code
 keeps pixel data in int16, with the same values).  The outputs are the
 same syntax tensors (levels in zigzag + block coding order, CBPs, MVs,
@@ -587,7 +589,8 @@ def encode_p_frame_core(src_y, src_u, src_v, ref_y, ref_u, ref_v,
                         qp: int, qpc: int, rng: int = 8, subpel: int = 0,
                         me_backend: str = "auto", decimate: bool = True,
                         partitions: bool = False, aq_strength: float = 0.0,
-                        qpc_offset: int = 0, wp=None, dct8x8: bool = False):
+                        qpc_offset: int = 0, wp=None, dct8x8: bool = False,
+                        qp_off=None):
     """P-frame encode, one reference: P16x16, or with `partitions` the
     16x16/16x8/8x16/8x8 decision on the 8x8 grid (adds 'part' (n,) and
     'mv8' (2mbh, 2mbw, 2) to the outputs).  All planes int32 at MB-
@@ -595,19 +598,26 @@ def encode_p_frame_core(src_y, src_u, src_v, ref_y, ref_u, ref_v,
 
     aq_strength > 0: per-MB variance AQ (aq_qp_map); quant and dequant run
     with the per-MB QPs and the outputs carry 'qp_real' and 'qp_delta'
-    (the mb_qp_delta chain, §7.4.5).  wp, optional (w, o) ints: explicit
-    weighted prediction of luma (§8.4.2.3, denominator 6) applied to the
-    interpolated prediction, in the decoder's order.  dct8x8: the per-MB
-    4x4-vs-8x8 transform decision (adds 't8' (n,) bool)."""
+    (the mb_qp_delta chain, §7.4.5).  qp_off, optional (n,) or (mbh, mbw)
+    int32: additive per-MB QP offsets (MB-tree), added to the AQ map (or
+    to qp) and clipped to [1, 51]; they switch on the same per-MB QP
+    bookkeeping.  wp, optional (w, o) ints: explicit weighted prediction
+    of luma (§8.4.2.3, denominator 6) applied to the interpolated
+    prediction, in the decoder's order.  dct8x8: the per-MB 4x4-vs-8x8
+    transform decision (adds 't8' (n,) bool)."""
     H, W = src_y.shape
     mbh, mbw = H // 16, W // 16
     n = mbh * mbw
     src_mbs = mbize(src_y)
     aq = float(aq_strength) > 0.0
-    if aq:
-        qp_mb = aq_qp_map(src_y, qp, float(aq_strength))
+    if aq or qp_off is not None:
+        qp_mb = (aq_qp_map(src_y, qp, float(aq_strength)) if aq else
+                 torch.full((n,), qp, dtype=torch.int32, device=src_y.device))
+        if qp_off is not None:
+            qp_mb = (qp_mb + qp_off.reshape(n)).clamp(1, 51).to(torch.int32)
         qpc_mb = tj.chroma_qp(qp_mb, qpc_offset)
         qp_l, qp_c, qp_cdc = qp_mb[:, None], qpc_mb[:, None], qpc_mb
+        aq = True                       # per-MB QP bookkeeping below
     else:
         qp_l, qp_c, qp_cdc = qp, qpc, qpc
     part = mv8 = None
@@ -677,6 +687,179 @@ def encode_p_frame_core(src_y, src_u, src_v, ref_y, ref_u, ref_v,
     if aq:
         coded = (cbp_luma != 0) | (cbp_chroma != 0)
         out["qp_real"], out["qp_delta"] = realized_qp_chain(qp_mb, coded, qp)
+    return out
+
+
+# --------------------------------------------------------------------------
+# B-frame pipeline
+# --------------------------------------------------------------------------
+
+def _direct_flip_mask(mode_map: torch.Tensor, colzero: torch.Tensor):
+    """Eligibility masks for flipping explicit-mode MBs to spatial
+    B_Direct_16x16 / B_Skip (§8.4.1.2.2) whose decoder prediction is known
+    exactly in advance, for any subset of eligible MBs flipped.
+
+    With single-entry reference lists the derived refIdxLX (MinPositive
+    over the available neighbours A, B and C, D where C is unavailable)
+    is 0 iff one of them uses list X.  Under colZeroFlag the derived
+    vector is 0 on every list used, so the prediction follows from the
+    derived usage alone:
+    * `both`, and `none` (directZeroPredictionFlag: refIdx 0, 0 at mv 0),
+      predict bi(0, 0).  A flipped MB of either class uses both lists,
+      so flips keep `both` and can only turn `none` into `both`;
+    * `L0 only` predicts from reference 0 at mv 0, but is stable only if
+      no flip anywhere can bring in L1: the phase-1 field uses no L1 and
+      no `none` MB is flipped.  L1 alike.
+
+    mode_map: (mbh, mbw) phase-1 modes (1 = L0, 2 = L1, 3 = Bi).
+    colzero: (mbh, mbw) bool colZeroFlag.
+    Returns (elig_bi, elig_l0, elig_l1) bool maps."""
+    use0 = (mode_map == 1) | (mode_map == 3)
+    use1 = (mode_map == 2) | (mode_map == 3)
+
+    def nb_any(use):
+        """An available neighbour A, B or C (D where C is unavailable)
+        uses the list."""
+        a = torch.zeros_like(use)
+        a[:, 1:] = use[:, :-1]
+        b = torch.zeros_like(use)
+        b[1:] = use[:-1]
+        d = torch.zeros_like(use)
+        d[1:, 1:] = use[:-1, :-1]
+        c = d.clone()           # above-right where it exists, else D
+        c[1:, :-1] = use[:-1, 1:]
+        return a | b | c
+
+    dl0 = nb_any(use0)
+    dl1 = nb_any(use1)
+    elig_bi = colzero & ((dl0 & dl1) | (~dl0 & ~dl1))
+    elig_l0 = colzero & dl0 & ~dl1 & ~use1.any()
+    elig_l1 = colzero & dl1 & ~dl0 & ~use0.any()
+    return elig_bi, elig_l0, elig_l1
+
+
+def mv_bits(mv: torch.Tensor) -> torch.Tensor:
+    """The mode decision's rate proxy for an mvd pair (the predictor is
+    not known there): 2 * ceil(log2(|x| + |y| + 2)) + 2, which the JAX
+    package takes from a float32 log2.  ceil(log2(a + 2)) is the bit
+    length of a + 1, exactly; the two agree for every a below 2^16
+    (test_torch_bframes.py), far beyond the reachable |x| + |y| <= 4 *
+    (2 * 16 + 1)."""
+    return 2 * cd.bit_length(mv.abs().sum(dim=-1) + 1) + 2
+
+
+def encode_b_frame_core(src_y, src_u, src_v, ref0_y, ref0_u, ref0_v,
+                        ref1_y, ref1_u, ref1_v, mvcol, qp: int, qpc: int,
+                        rng: int = 8, subpel: int = 0,
+                        me_backend: str = "auto", decimate: bool = True,
+                        dct8x8: bool = False):
+    """B-frame encode: independent L0 and L1 motion searches (each one
+    _motion_search_and_mc), the per-MB {L0, L1, Bi} decision (default
+    bi-prediction, (p0 + p1 + 1) >> 1, §8.4.2.3.1), then a second phase
+    that flips MBs to spatial B_Direct_16x16 / B_Skip where the decoder's
+    direct derivation provably equals the prediction coded
+    (_direct_flip_mask) and it is no dearer.  Ties in the decision go to
+    the first of L0, L1, Bi; the flips take equal costs.
+
+    mvcol: (n, 2) the colocated motion field of RefPicList1[0], the
+    anchor after this frame (TorchEncoder.last_mv): per MB its vector,
+    or for an anchor with partitions the per-component max |mv| over the
+    MB's four 8x8 quadrants.  An MB is colZero when both components are
+    <= 1 in magnitude, a conservative colZeroFlag (the decoder derives
+    it per block).  B frames are non-reference (no B-pyramid), so no
+    recon is computed.
+    Returns 'mode' (n,) 0 = direct, 1 = L0, 2 = L1, 3 = Bi; 'mv0', 'mv1'
+    (n, 2) quarter-pel; 'uses0', 'uses1' (n,) the final list usage as
+    the decoder sees it; the residual syntax tensors; and 't8' with
+    dct8x8."""
+    H, W = src_y.shape
+    mbh, mbw = H // 16, W // 16
+    n = mbh * mbw
+    dev = src_y.device
+    src_mbs = mbize(src_y)
+
+    mv0_q4, p0y, p0u, p0v = _motion_search_and_mc(
+        src_y, src_u, src_v, ref0_y, ref0_u, ref0_v, rng, subpel=subpel,
+        me_backend=me_backend)
+    mv1_q4, p1y, p1u, p1v = _motion_search_and_mc(
+        src_y, src_u, src_v, ref1_y, ref1_u, ref1_v, rng, subpel=subpel,
+        me_backend=me_backend)
+    biy = (p0y + p1y + 1) >> 1
+    biu = (p0u + p1u + 1) >> 1
+    biv = (p0v + p1v + 1) >> 1
+    # the direct candidate: bi-prediction at mv 0 (the one direct shape the
+    # flips admit), the rounded mean of the two references
+    diy = (ref0_y + ref1_y + 1) >> 1
+    diu = (ref0_u + ref1_u + 1) >> 1
+    div = (ref0_v + ref1_v + 1) >> 1
+
+    def mbsad(pred):
+        return (src_y - pred).abs().reshape(mbh, 16, mbw, 16) \
+            .sum(dim=(1, 3), dtype=torch.int32).reshape(n)
+
+    mv0 = mv0_q4.reshape(n, 2)
+    mv1 = mv1_q4.reshape(n, 2)
+    lam = 4                     # the integer search's lambda (4 * SAD + bits)
+    c0 = mbsad(p0y) * 4 + lam * (3 + mv_bits(mv0))
+    c1 = mbsad(p1y) * 4 + lam * (3 + mv_bits(mv1))
+    cbi = mbsad(biy) * 4 + lam * (5 + mv_bits(mv0) + mv_bits(mv1))
+    mode = torch.where((c0 <= c1) & (c0 <= cbi), 1,
+                       torch.where(c1 <= cbi, 2, 3)).to(torch.int32)
+    cmin = torch.minimum(c0, torch.minimum(c1, cbi))
+
+    # ---- phase 2: the direct / skip flips ----
+    colzero = (mvcol.abs() <= 1).all(dim=-1).reshape(mbh, mbw)
+    elig_bi, elig_l0, elig_l1 = _direct_flip_mask(mode.reshape(mbh, mbw),
+                                                  colzero)
+    flip_bi = elig_bi.reshape(n) & (mbsad(diy) * 4 + lam <= cmin)
+    flip_l0 = elig_l0.reshape(n) & (mbsad(ref0_y) * 4 + lam <= cmin)
+    flip_l1 = elig_l1.reshape(n) & (mbsad(ref1_y) * 4 + lam <= cmin)
+    flip = flip_bi | flip_l0 | flip_l1
+    # direct flavour per MB: 0 = bi(0, 0), 1 = L0(0, 0), 2 = L1(0, 0)
+    flavor = torch.where(flip_l0, 1, torch.where(flip_l1, 2, 0))
+    mode = torch.where(flip, 0, mode).to(torch.int32)
+
+    def select(bs, direct, p0, p1, bi, r0, r1):
+        """Per-pixel prediction of the chosen mode and flavour."""
+        m = _per_pixel(mode.reshape(mbh, mbw), bs)
+        f = _per_pixel(flavor.reshape(mbh, mbw), bs)
+        dpl = torch.where(f == 1, r0, torch.where(f == 2, r1, direct))
+        return torch.where(m == 0, dpl, torch.where(
+            m == 1, p0, torch.where(m == 2, p1, bi))).to(torch.int32)
+
+    pred = mbize(select(16, diy, p0y, p1y, biy, ref0_y, ref1_y))
+    pred_u = mbize(select(8, diu, p0u, p1u, biu, ref0_u, ref1_u), 8)
+    pred_v = mbize(select(8, div, p0v, p1v, biv, ref0_v, ref1_v), 8)
+    levels, _, t8_flag = _luma_residual_pipeline(
+        src_mbs, pred, qp, intra=False, decimate=decimate, t8=dct8x8)
+    cbp_q = (levels != 0).any(dim=-1).reshape(n, 4, 4).any(dim=-1)
+    bit = torch.tensor([1, 2, 4, 8], dtype=torch.int32, device=dev)
+    cbp_luma = (cbp_q * bit).sum(dim=-1, dtype=torch.int32)
+    dc_u, ac_u = _chroma_residual_pipeline(mbize(src_u, 8), pred_u, qpc,
+                                           False)
+    dc_v, ac_v = _chroma_residual_pipeline(mbize(src_v, 8), pred_v, qpc,
+                                           False)
+    has_ac = (ac_u != 0).any(dim=2).any(dim=1) | \
+        (ac_v != 0).any(dim=2).any(dim=1)
+    has_dc = (dc_u != 0).any(dim=2).any(dim=1) | \
+        (dc_v != 0).any(dim=2).any(dim=1)
+    cbp_chroma = torch.where(has_ac, 2, torch.where(has_dc, 1, 0)).to(
+        torch.int32)
+    out = {
+        "mode": mode,
+        "mv0": mv0, "mv1": mv1,
+        # the final list usage (decoder view): explicit modes use their
+        # lists, direct MBs those of their flavour
+        "uses0": torch.where(flip, flavor != 2, (mode == 1) | (mode == 3)),
+        "uses1": torch.where(flip, flavor != 1, (mode == 2) | (mode == 3)),
+        "levels": levels,
+        "cbp_luma": cbp_luma,
+        "cbp_chroma": cbp_chroma,
+        "dc_u": dc_u, "dc_v": dc_v,
+        "ac_u": ac_u, "ac_v": ac_v,
+    }
+    if t8_flag is not None:
+        out["t8"] = t8_flag
     return out
 
 

@@ -1,18 +1,19 @@
 """Device-side slice finalisation: syntax tensors -> slots -> packed bytes.
 
-Port of the I (I16x16 and I_NxN) and one-reference P parts (P16x16 and
-the 8x8-grid partitions, with transform_size_8x8_flag and mb_qp_delta)
-of x264vfw_tpu/encode/device_finalize.py, with the in-loop deblock of the
-reference planes, and of its batched P run (encode_pgop_slots,
-pack_batch) without B frames, MB-tree, AQ or the 8x8 transform.
+Port of the I (I16x16 and I_NxN), one-reference P (P16x16 and the
+8x8-grid partitions, with transform_size_8x8_flag and mb_qp_delta) and B
+(16x16 modes, direct and B_Skip) parts of
+x264vfw_tpu/encode/device_finalize.py, with the in-loop deblock of the
+reference planes, and of its batched runs (encode_pgop_slots with
+MB-tree offsets and the anchors' recons, encode_bgop_slots, pack_batch).
 Everything between the per-MB compute and the NAL wrapper runs on the
 device: MV prediction, skip-run derivation, nC context maps, CAVLC slot
 generation (bitstream/cavlc_dev) and bit packing (device_pack).  The host
 receives the packed payload bytes, about the size of the bitstream.
 
-I slices have the JAX code's slot layout.  P slices differ from it only
-in slots that are always zero-length where the port leaves them out:
-ref_idx (one reference) and, without --8x8dct,
+I and B slices have the JAX code's slot layout.  P slices differ from
+it only in slots that are always zero-length where the port leaves them
+out: ref_idx (one reference) and, without --8x8dct,
 transform_size_8x8_flag.  The packer drops zero-length slots, so the
 packed bytes are the same.
 
@@ -123,6 +124,61 @@ def p16_mv_pred(mv: torch.Tensor):
     skip_cond = (~availA) | (~availB) | zeroA | zeroB
     pmv_skip = torch.where(skip_cond[..., None], 0, pmv)
     return pmv, (pmv_skip == 0).all(-1)
+
+
+def _neighbours(a: torch.Tensor):
+    """The left (A), above (B), above-right (C) and above-left (D)
+    neighbour of every MB of a (mbh, mbw, ...) field, 0 off the frame."""
+    def sh(dy, dx):
+        out = torch.zeros_like(a)
+        mbh, mbw = a.shape[:2]
+        out[max(-dy, 0):mbh + min(-dy, 0), max(-dx, 0):mbw + min(-dx, 0)] = \
+            a[max(dy, 0):mbh + min(dy, 0), max(dx, 0):mbw + min(dx, 0)]
+        return out
+    return sh(0, -1), sh(-1, 0), sh(-1, 1), sh(-1, -1)
+
+
+def b_mv_pred(mv: torch.Tensor, uses: torch.Tensor) -> torch.Tensor:
+    """§8.4.1.3 MV prediction for one list of a B frame with single-entry
+    reference lists: a neighbour matches iff it is available and uses the
+    list (refIdx 0 == refIdx 0); neighbours that do not use it give mv 0
+    to the median.  C falls back to D where C is unavailable.  An MB with
+    only A available (the top row) takes A's vector if A uses the list,
+    else 0.  mv: (mbh, mbw, 2) the final per-MB vector of this list (0
+    where the MB does not use it or is direct); uses: (mbh, mbw) bool.
+    Returns pmv (mbh, mbw, 2)."""
+    mbh, mbw, _ = mv.shape
+    dev = mv.device
+    mvA, mvB, mvC, mvD = _neighbours(mv)
+    usA, usB, usC, usD = _neighbours(uses)
+    yy = torch.arange(mbh, device=dev)[:, None].expand(mbh, mbw)
+    xx = torch.arange(mbw, device=dev)[None, :].expand(mbh, mbw)
+    availA = xx > 0
+    availB = yy > 0
+    availC_raw = (yy > 0) & (xx < mbw - 1)
+    availC = availC_raw | ((yy > 0) & (xx > 0))
+    mvC_eff = torch.where(availC_raw[..., None], mvC, mvD)
+    usC_eff = torch.where(availC_raw, usC, usD)
+    matchA = availA & usA
+    matchB = availB & usB
+    matchC = availC & usC_eff
+    mA = torch.where(matchA[..., None], mvA, 0)
+    mB = torch.where(matchB[..., None], mvB, 0)
+    mC = torch.where(matchC[..., None], mvC_eff, 0)
+    nmatch = matchA.int() + matchB.int() + matchC.int()
+    only_a = availA & ~availB & ~availC       # MB-level availability
+    return torch.where(only_a[..., None], mA,
+                       torch.where((nmatch == 1)[..., None], mA + mB + mC,
+                                   _median3(mA, mB, mC)))
+
+
+def colocated_mv(out, n: int) -> torch.Tensor:
+    """The colocated motion field a P anchor hands to the B frames before
+    it (spatial direct's colZeroFlag, §8.4.1.2.2): (n, 2), per MB its
+    vector, or with partitions the per-component max |mv| over its 8x8
+    quadrants (the P core's 'mv'), so the B core's |mv| <= 1 test stays
+    a conservative colZeroFlag.  One reference: refIdxCol is always 0."""
+    return out["mv"].reshape(n, 2)
 
 
 def _stack_rows(hdr_vals, hdr_lens, mb_vals, mb_lens, tail_vals, tail_lens):
@@ -286,6 +342,77 @@ def _finalize_p_core(out, hdr_vals, hdr_lens, mbh: int, mbw: int,
                        tail_vals, tail_lens)
 
 
+def _finalize_b_core(out, hdr_vals, hdr_lens, mbh: int, mbw: int,
+                     t8_mode: bool = False):
+    """B-slice syntax tensors -> slot rows, in the JAX code's layout.
+    mode: 0 = B_Direct_16x16, 1 = B_L0_16x16, 2 = B_L1_16x16, 3 =
+    B_Bi_16x16, which are also the mb_type values (Table 7-14); direct
+    MBs with cbp 0 fold into mb_skip_run (B_Skip).  Header slots per MB:
+    [mb_skip_run, mb_type, mvd L0 x, y, mvd L1 x, y, coded_block_pattern,
+    transform_size_8x8_flag (t8_mode, luma cbp != 0), mb_qp_delta se(0)
+    (cbp != 0)], then the luma blocks and chroma."""
+    n = mbh * mbw
+    dev = out["mode"].device
+    mode = out["mode"]
+    cbp_luma = out["cbp_luma"]
+    cbp = cbp_luma | (out["cbp_chroma"] << 4)
+
+    # the final per-list fields the decoder sees: direct MBs use the lists
+    # of their flavour at mv 0 (device._direct_flip_mask guarantees it)
+    has0 = (mode == 1) | (mode == 3)
+    has1 = (mode == 2) | (mode == 3)
+    mvL0 = out["mv0"] * has0[:, None]
+    mvL1 = out["mv1"] * has1[:, None]
+    mvd0 = mvL0 - b_mv_pred(mvL0.reshape(mbh, mbw, 2),
+                            out["uses0"].reshape(mbh, mbw)).reshape(n, 2)
+    mvd1 = mvL1 - b_mv_pred(mvL1.reshape(mbh, mbw, 2),
+                            out["uses1"].reshape(mbh, mbw)).reshape(n, 2)
+
+    skip = (mode == 0) & (cbp == 0)
+    i = torch.arange(n, dtype=torch.int32, device=dev)
+    ns = ~skip
+    ns_pos = torch.where(ns, i, -1)
+    prev_ns = torch.cat([torch.full((1,), -1, dtype=torch.int32, device=dev),
+                         torch.cummax(ns_pos, dim=0).values[:-1]])
+    runs = torch.where(ns, i - prev_ns - 1, 0)
+    trailing = n - 1 - ns_pos.max()
+
+    quad = torch.arange(16, device=dev) // 4
+    quad_coded = ((cbp_luma[:, None] >> quad) & 1).bool()
+    levels = out["levels"] * quad_coded[:, :, None]
+    nc_l = _nc_luma((levels != 0).sum(-1, dtype=torch.int32), mbh, mbw)
+    vlu, llu = cd.encode_blocks(levels.reshape(-1, 16), nc_l.reshape(-1), 16)
+    llu = llu.reshape(n, 16, S) * quad_coded[:, :, None]
+
+    rv, rl = cd.ue_codes_dev(runs)
+    tv, tl = cd.ue_codes_dev(mode)
+    vals, lens = [rv, tv], [rl, tl]
+    for mvd, hasl in ((mvd0, has0), (mvd1, has1)):
+        for c in range(2):
+            v, ln = cd.se_codes_dev(mvd[:, c])
+            vals.append(v)
+            lens.append(ln * hasl)
+    code = torch.as_tensor(CBP_TO_CODE[0], device=dev)[cbp.long()]
+    bv, bl = cd.ue_codes_dev(code)
+    vals.append(bv)
+    lens.append(bl)
+    t8 = out.get("t8", torch.zeros(n, dtype=torch.bool, device=dev))
+    vals.append(t8.to(torch.int64) if t8_mode else torch.zeros_like(rv))
+    lens.append((cbp_luma != 0).int() * int(t8_mode))
+    vals.append(torch.ones_like(rv))
+    lens.append((cbp != 0).int())
+    hv = torch.stack(vals, dim=1)
+    hl = torch.stack([ln.to(torch.int32) for ln in lens], dim=1)
+
+    cv, cl = _chroma_slots(out, n, mbh, mbw)
+    mb_vals = torch.cat([hv, vlu.reshape(n, -1), cv], dim=1)
+    mb_lens = torch.cat([hl, llu.reshape(n, -1), cl], dim=1)
+    mb_lens = mb_lens * (~skip)[:, None]
+    tail_vals, tail_lens = _tail(hdr_lens, mb_lens, trailing)
+    return _stack_rows(hdr_vals, hdr_lens, mb_vals, mb_lens,
+                       tail_vals, tail_lens)
+
+
 def _finalize_i_core(out, hdr_vals, hdr_lens, mbh: int, mbw: int,
                      t8_mode: bool = False):
     """I-slice syntax tensors -> slot rows, mixed I16x16 / I_NxN (all
@@ -403,19 +530,20 @@ def encode_p_slots(src_yuv, ref_y, ref_u, ref_v, qp: int, qpc: int,
                    me_backend: str = "auto", deblock: bool = False,
                    dbA: int = 0, dbB: int = 0, qpc_offset: int = 0,
                    partitions: bool = False, aq_strength: float = 0.0,
-                   wp=None, dct8x8: bool = False):
+                   wp=None, dct8x8: bool = False, qp_off=None):
     """Fused P-frame phase 1: unpack the uint8 frame -> P encode (with AQ,
-    weighted prediction and the 8x8 transform decision when asked) ->
-    slot rows, and the (deblocked when `deblock`) recon.  Returns
-    (slot_vals, slot_lens, recon_y, recon_u, recon_v, out): `out` holds
-    the syntax tensors, among them 'mv' and, with partitions, 'part' and
-    'mv8'."""
+    MB-tree's per-MB QP offsets qp_off, weighted prediction and the 8x8
+    transform decision when asked) -> slot rows, and the (deblocked when
+    `deblock`) recon.  Returns (slot_vals, slot_lens, recon_y, recon_u,
+    recon_v, out): `out` holds the syntax tensors, among them 'mv' and,
+    with partitions, 'part' and 'mv8'."""
     from .device import encode_p_frame_core
     H, W = ref_y.shape
     out = encode_p_frame_core(*_unpack_src(src_yuv, H, W), ref_y, ref_u,
                               ref_v, qp, qpc, rng, subpel, me_backend,
                               partitions=partitions, aq_strength=aq_strength,
-                              qpc_offset=qpc_offset, wp=wp, dct8x8=dct8x8)
+                              qpc_offset=qpc_offset, wp=wp, dct8x8=dct8x8,
+                              qp_off=qp_off)
     v, l = _finalize_p_core(out, hdr_vals, hdr_lens, H // 16, W // 16,
                             t8_mode=dct8x8)
     return (v, l, *_maybe_deblock(out, qp, H // 16, W // 16, False, deblock,
@@ -426,30 +554,80 @@ def encode_pgop_slots(frames_yuv, ref_y, ref_u, ref_v, qps, qpcs,
                       hdr_vals, hdr_lens, rng: int, subpel: int = 0,
                       me_backend: str = "auto", deblock: bool = False,
                       dbA: int = 0, dbB: int = 0, qpc_offset: int = 0,
-                      partitions: bool = False):
+                      partitions: bool = False, aq_strength: float = 0.0,
+                      dct8x8: bool = False, qp_offs=None,
+                      want_recons: bool = False):
     """Batched P-frame phase 1: the G frames of a run, each encoded
     against the (deblocked when `deblock`) recon of the one before, with
-    one reference and no per-MB QP offsets.  The JAX package's lax.scan
+    one reference, without weighted prediction (as in the JAX package:
+    its batched P program takes no weights).  The JAX package's lax.scan
     is a Python loop over encode_p_slots here.  It packs nothing, so no
     bit count is read back (pack_batch reads them when the run is
     materialized) and on CUDA the run stays queued while the host goes
     on.
 
     frames_yuv: (G, H*W*3/2) uint8; qps/qpcs: G Python ints (one QP per
-    frame, as rate control chose); hdr_vals/hdr_lens: (G, MAX_HDR).
+    frame, as rate control chose); hdr_vals/hdr_lens: (G, MAX_HDR);
+    qp_offs: None or (G, n) int32 per-MB QP offsets (MB-tree).
     Returns (slot_vals (G, rows, L), slot_lens (G, rows, L), recon_y,
-    recon_u, recon_v of the last frame, mv (G, n, 2) quarter-pel)."""
+    recon_u, recon_v of the last frame, mv (G, n, 2) the colocated
+    fields (colocated_mv)) and, with want_recons, a list of G (y, u, v)
+    uint8 recons, the references of the B frames around these anchors."""
     ref = (ref_y, ref_u, ref_v)
-    vs, ls, mvs = [], [], []
+    vs, ls, mvs, recons = [], [], [], []
+    n = (ref_y.shape[0] // 16) * (ref_y.shape[1] // 16)
     for g in range(frames_yuv.shape[0]):
         v, l, *ref, out = encode_p_slots(
             frames_yuv[g], *ref, qps[g], qpcs[g], hdr_vals[g], hdr_lens[g],
             rng, subpel, me_backend, deblock, dbA, dbB, qpc_offset,
-            partitions)
+            partitions, aq_strength, dct8x8=dct8x8,
+            qp_off=None if qp_offs is None else qp_offs[g])
         vs.append(v)
         ls.append(l)
-        mvs.append(out["mv"])
-    return (torch.stack(vs), torch.stack(ls), *ref, torch.stack(mvs))
+        mvs.append(colocated_mv(out, n))
+        if want_recons:
+            recons.append(tuple(p.to(torch.uint8) for p in ref))
+    res = (torch.stack(vs), torch.stack(ls), *ref, torch.stack(mvs))
+    return res + (recons,) if want_recons else res
+
+
+def encode_b_slots(src_yuv, ref0_y, ref0_u, ref0_v, ref1_y, ref1_u, ref1_v,
+                   mvcol, qp: int, qpc: int, hdr_vals, hdr_lens, rng: int,
+                   subpel: int = 0, me_backend: str = "auto",
+                   dct8x8: bool = False):
+    """Fused B-frame phase 1: unpack the uint8 frame -> B encode between
+    the two anchors (any integer dtype, the values 0..255) -> slot rows.
+    mvcol: (n, 2) the later anchor's colocated field.  B frames are
+    non-reference: no recon.  Returns (slot_vals, slot_lens)."""
+    from .device import encode_b_frame_core
+    H, W = ref0_y.shape
+    refs = [p.to(torch.int32) for p in (ref0_y, ref0_u, ref0_v, ref1_y,
+                                        ref1_u, ref1_v)]
+    out = encode_b_frame_core(*_unpack_src(src_yuv, H, W), *refs, mvcol, qp,
+                              qpc, rng, subpel, me_backend, dct8x8=dct8x8)
+    return _finalize_b_core(out, hdr_vals, hdr_lens, H // 16, W // 16,
+                            t8_mode=dct8x8)
+
+
+def encode_bgop_slots(rows, refs0, refs1, mvcols, qps, qpcs, hdr_vals,
+                      hdr_lens, rng: int, subpel: int = 0,
+                      me_backend: str = "auto", dct8x8: bool = False):
+    """Batched B-frame phase 1: Gb B frames, which do not depend on each
+    other.  The JAX package's lax.scan (there to bound peak memory) is a
+    Python loop over encode_b_slots here; nothing is read back.
+
+    rows: (Gb, H*W*3/2) uint8; refs0/refs1: Gb (y, u, v) reference tuples
+    (the anchors' recons); mvcols: Gb (n, 2) colocated fields of the later
+    anchors; qps/qpcs: Gb ints; hdr_vals/hdr_lens: (Gb, MAX_HDR).
+    Returns (slot_vals (Gb, rows, L), slot_lens (Gb, rows, L))."""
+    vs, ls = [], []
+    for g in range(rows.shape[0]):
+        v, l = encode_b_slots(rows[g], *refs0[g], *refs1[g], mvcols[g],
+                              qps[g], qpcs[g], hdr_vals[g], hdr_lens[g],
+                              rng, subpel, me_backend, dct8x8)
+        vs.append(v)
+        ls.append(l)
+    return torch.stack(vs), torch.stack(ls)
 
 
 def pack_batch(vs, ls):

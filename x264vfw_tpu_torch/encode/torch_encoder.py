@@ -1,19 +1,22 @@
 """Encoder session object: device pipeline + host NAL wrapping (PyTorch).
 
 Port of the per-frame device path of x264vfw_tpu/encode/tpu_encoder.py ::
-TpuEncoder for I and P frames: push_frame (with the scene-cut IDR
-decision) -> encode_frame -> one uint8 upload, the fused I or P phase 1
-(encode/device_finalize.py: I16x16 and I_NxN, P with AQ, weighted
-prediction and the 8x8 transform, the in-loop deblock when the config
-asks for it), a pack sized from the slot lengths, one pull of the payload
-bytes, with --cabac the host CABAC transcode of that CAVLC slice
+TpuEncoder, one reference: push_frame (the scene-cut IDR decision and,
+with --bframes, the B-frame scheduler: display order in, decode order
+out) -> encode_frame (I and P) or _encode_b -> one uint8 upload, the
+fused I, P or B phase 1 (encode/device_finalize.py: I16x16 and I_NxN, P
+with AQ, MB-tree QP offsets, weighted prediction and the 8x8 transform,
+B with the direct/skip flips, the in-loop deblock of I and P when the
+config asks for it), a pack sized from the slot lengths, one pull of the
+payload bytes, with --cabac the host CABAC transcode of that CAVLC slice
 (bitstream/cabac_transcode.py), and the NAL wrap on the host.  Reference
 frames (deblocked when the slice filters) stay on the device between
-frames.  The batched session (encode/pipeline.py) drives the same
-object: it reads and writes
-display_idx, _last_idr_d, poc_base, poc, frame_num and frame_idx, writes
-slice headers with _slice_header_codes and uploads a run of frames with
-pack_batch_rows.
+frames; B frames are non-reference.  The batched session
+(encode/pipeline.py) drives the same object: it reads and writes
+display_idx, _last_idr_d, poc_base, poc, qp, frame_num and frame_idx,
+writes slice headers with _slice_header_codes, uploads a run of frames
+with pack_batch_rows and encodes IDRs, tail anchors and tail B frames
+with encode_frame and _encode_b.
 
 Header conventions (SPS profile/level/DPB size, PPS, slice headers,
 version SEI) are the JAX package's, byte for byte.
@@ -26,7 +29,7 @@ import time
 import numpy as np
 import torch
 
-from ..bitstream.mb_syntax import SLICE_I, SLICE_P
+from ..bitstream.mb_syntax import SLICE_B, SLICE_I, SLICE_P
 from ..bitstream.nal import NAL_PPS, NAL_SLICE, NAL_SLICE_IDR, NAL_SPS, wrap_nal
 from ..bitstream.params import (PPS, SPS, PROFILE_BASELINE, PROFILE_HIGH,
                                 PROFILE_MAIN)
@@ -40,8 +43,7 @@ from .ref_encoder import EncoderConfig
 
 def _unsupported(cfg: EncoderConfig) -> list[str]:
     """Options of cfg that this port does not carry yet."""
-    return [name for name, on in (("bframes", cfg.bframes > 0),
-                                  ("ref > 1", cfg.num_ref_frames > 1),
+    return [name for name, on in (("ref > 1", cfg.num_ref_frames > 1),
                                   ("trellis", cfg.trellis)) if on]
 
 
@@ -57,21 +59,27 @@ class TorchEncoder:
         self.device = resolve_device(device)
         self.mbw = (cfg.width + 15) // 16
         self.mbh = (cfg.height + 15) // 16
-        # no B frames: High with the 8x8 transform, else Main with CABAC,
-        # else Constrained Baseline; POC type 2
+        # High with the 8x8 transform, else Main with CABAC or B frames,
+        # else Constrained Baseline; POC type 0 with B frames (the decoder
+        # reorders by pic_order_cnt_lsb), else 2
         self.sps = SPS(
             profile_idc=PROFILE_HIGH if cfg.dct8x8
-            else (PROFILE_MAIN if cfg.cabac else PROFILE_BASELINE),
-            constraint_set0=0 if (cfg.cabac or cfg.dct8x8) else 1,
+            else (PROFILE_MAIN if (cfg.cabac or cfg.bframes)
+                  else PROFILE_BASELINE),
+            constraint_set0=0 if (cfg.cabac or cfg.bframes or cfg.dct8x8)
+            else 1,
             constraint_set1=1,
             level_idc=_level_for(cfg.width, cfg.height, cfg.fps_num,
                                  cfg.fps_den),
             log2_max_frame_num_minus4=4,
-            pic_order_cnt_type=2,
+            pic_order_cnt_type=0 if cfg.bframes else 2,
             log2_max_pic_order_cnt_lsb_minus4=4,
-            # kept exactly as the JAX package writes it (tpu_encoder.py:62),
-            # without clamping to the level's DPB: byte parity comes first
-            max_num_ref_frames=max(1, min(cfg.num_ref_frames, 4)),
+            # kept exactly as the JAX package writes it (tpu_encoder.py:62,
+            # two frames with B frames: both anchors of a B), without
+            # clamping to the level's DPB: byte parity comes first
+            max_num_ref_frames=(max(2, min(cfg.num_ref_frames, 4))
+                                if cfg.bframes
+                                else max(1, min(cfg.num_ref_frames, 4))),
             pic_width_in_mbs_minus1=self.mbw - 1,
             pic_height_in_map_units_minus1=self.mbh - 1,
         )
@@ -101,8 +109,10 @@ class TorchEncoder:
         self.display_idx = 0
         self.poc_base = 0             # display index of the last IDR
         self._last_idr_d: int | None = None
+        self.pending: list = []        # buffered B candidates (y, u, v, d)
         self.ref: tuple | None = None  # device (y, u, v) int32 recon
-        self.last_mv = None            # device (n, 2) mv field of last P
+        self.last_mv = None            # device (n, 2) colocated field of the
+        #                                last P (device_finalize.colocated_mv)
         self.last_mv8 = None           # its 8x8-grid field, with partitions
         self.qp = cfg.qp
         self.qpc = int(tables.chroma_qp(cfg.qp, self.pps.chroma_qp_index_offset))
@@ -119,20 +129,28 @@ class TorchEncoder:
 
     def load_state(self, state) -> None:
         """Resume from a convert.EncoderState, e.g. a JAX encoder's DPB,
-        counters, weight-analysis and scene-cut state.  Without B frames
-        the display index is frame_idx."""
+        counters, weight-analysis and scene-cut state, and with B frames
+        the frames pending for the next anchor, the last anchor's
+        colocated field and the display index.  Without B frames the
+        display index is frame_idx unless the state says otherwise."""
         H, W = self.mbh * 16, self.mbw * 16
         if tuple(state.ref[0].shape) != (H, W):
             raise ValueError(f"reference is {tuple(state.ref[0].shape)}, "
                              f"the encoder codes {(H, W)}")
         self.ref = tuple(p.to(self.device, torch.int32) for p in state.ref)
-        self.frame_idx = self.display_idx = state.frame_idx
+        self.frame_idx = state.frame_idx
+        self.display_idx = (state.frame_idx if state.display_idx is None
+                            else state.display_idx)
         self.frame_num = state.frame_num
         self.idr_id = state.idr_id
         self.poc = state.poc
         self.poc_base = state.poc_base
         self._last_idr_d = state.last_idr
         self._wp_prev = state.wp_prev
+        self.pending = [tuple(f) for f in state.pending]
+        self.last_mv = (None if state.last_mv is None else
+                        torch.as_tensor(np.asarray(state.last_mv, np.int32),
+                                        device=self.device))
         if self._scenecut is not None:
             self._scenecut.prev = state.scenecut_prev
             self._scenecut._ema = state.scenecut_ema
@@ -150,10 +168,17 @@ class TorchEncoder:
 
     # ------------------------------------------------------------------
     def push_frame(self, y, u, v, qp_i: int | None = None,
-                   qp_p: int | None = None) -> list[tuple[bytes, int, bool]]:
-        """Submit one display-order frame.  Returns the encoded AUs as
-        (annexb_bytes, display_index, is_keyframe) in decode order (one
-        per frame: this slice has no B frames)."""
+                   qp_p: int | None = None, qp_b: int | None = None,
+                   qp_off: np.ndarray | None = None
+                   ) -> list[tuple[bytes, int, str]]:
+        """Submit one display-order frame.  Returns zero or more encoded AUs
+        as (annexb_bytes, display_index, frame type "I", "P" or "B") in
+        decode order; an I frame is an IDR.  Without B frames one per
+        frame; with --bframes N a frame waits while fewer than N are
+        pending, then comes out as the P anchor followed by the pending
+        frames as B frames, and an IDR first drains the pending frames
+        (_drain_pending_as_tail).  qp_off: the frame's MB-tree QP offsets
+        (mbh, mbw), used when it is a P anchor."""
         cfg = self.cfg
         d = self.display_idx
         self.display_idx += 1
@@ -163,13 +188,83 @@ class TorchEncoder:
                   or (cut and since >= max(cfg.min_keyint, 1)))
         if is_idr:
             self._last_idr_d = d
-        au = self.encode_frame(y, u, v, qp=qp_i if is_idr else qp_p,
-                               force_idr=is_idr)
-        return [(au, d, is_idr)]
+        if cfg.bframes == 0:
+            au = self.encode_frame(y, u, v, qp=qp_i if is_idr else qp_p,
+                                   force_idr=is_idr,
+                                   qp_off=None if is_idr else qp_off)
+            return [(au, d, "I" if is_idr else "P")]
+        out: list[tuple[bytes, int, str]] = []
+        if is_idr:
+            out += self._drain_pending_as_tail(qp_p, qp_b)
+            self.poc_base = d
+            self.poc = 0
+            out.append((self.encode_frame(y, u, v, qp=qp_i, force_idr=True),
+                        d, "I"))
+            return out
+        if len(self.pending) < cfg.bframes:
+            self.pending.append((y, u, v, d))
+            return out
+        # the anchor: the P frame first, then the pending frames as B's
+        self.pending.append((y, u, v, d))
+        return out + self._drain_pending_as_tail(qp_p, qp_b, qp_off)
+
+    def flush(self, qp_p: int | None = None,
+              qp_b: int | None = None) -> list[tuple[bytes, int, str]]:
+        """End of stream: close the last mini-GOP (_drain_pending_as_tail)."""
+        return self._drain_pending_as_tail(qp_p, qp_b)
+
+    def _drain_pending_as_tail(self, qp_p, qp_b=None, qp_off=None):
+        """Close a mini-GOP: the last pending frame becomes the P anchor
+        (with the MB-tree offsets qp_off; the JAX package passes none at
+        an IDR or the flush), the others B frames between the previous
+        anchor and it.  Returns (au, display_index, frame type)."""
+        if not self.pending:
+            return []
+        *bs, (py, pu, pv, pd) = self.pending
+        self.pending = []
+        old_ref = self.ref
+        self.poc = 2 * (pd - self.poc_base)
+        out = [(self.encode_frame(py, pu, pv, qp=qp_p, force_idr=False,
+                                  qp_off=qp_off), pd, "P")]
+        mvcol = self.last_mv
+        for (by, bu, bv, bd) in bs:
+            out.append((self._encode_b(by, bu, bv, old_ref, self.ref, mvcol,
+                                       2 * (bd - self.poc_base),
+                                       qp_b if qp_b is not None else qp_p),
+                        bd, "B"))
+        return out
+
+    def _encode_b(self, y, u, v, ref0, ref1, mvcol, poc: int,
+                  qp: int | None) -> bytes:
+        """Encode one non-reference B frame between the anchors ref0 and
+        ref1 (mvcol: ref1's colocated field).  Its frame_num is the
+        counter after the later anchor (PrevRefFrameNum + 1, §7.4.3),
+        which it does not advance."""
+        cfg = self.cfg
+        if qp is not None:
+            self.qp = int(min(max(qp, 0), 51))
+            self.qpc = int(tables.chroma_qp(self.qp,
+                                            self.pps.chroma_qp_index_offset))
+        self.poc = poc
+        src_d = torch.from_numpy(self.pack_batch_rows([(y, u, v)])[0]) \
+            .to(self.device)
+        hv, hl = self._header_slots(SLICE_B, NAL_SLICE, nal_ref_idc=0)
+        sv_, sl_ = device_finalize.encode_b_slots(
+            src_d, *ref0, *ref1, mvcol, self.qp, self.qpc, hv, hl,
+            cfg.search_range, cfg.subpel, cfg.me_backend, dct8x8=cfg.dct8x8)
+        data, nbits = device_finalize.pack_phase(sv_, sl_)
+        payload = data[:(nbits + 7) // 8].cpu().numpy()
+        if cfg.cabac:
+            payload = self._transcode(payload, hl, "B")
+        self.frame_idx += 1
+        return wrap_nal(0, NAL_SLICE, payload)
 
     def encode_frame(self, y: np.ndarray, u: np.ndarray, v: np.ndarray,
                      qp: int | None = None,
-                     force_idr: bool | None = None) -> bytes:
+                     force_idr: bool | None = None,
+                     qp_off: np.ndarray | None = None) -> bytes:
+        """Encode one I or P frame (an IDR when force_idr, or at keyint
+        without it); qp_off: MB-tree's per-MB QP offsets of a P frame."""
         cfg = self.cfg
         H, W = self.mbh * 16, self.mbw * 16
         is_idr = (self.frame_idx % cfg.keyint) == 0 or self.ref is None
@@ -206,8 +301,11 @@ class TorchEncoder:
                 cfg.deblock, cfg.deblock_alpha, cfg.deblock_beta,
                 qpc_offset=self.pps.chroma_qp_index_offset,
                 partitions=cfg.partitions, aq_strength=cfg.aq_strength,
-                wp=self._wp, dct8x8=cfg.dct8x8)
-            self.last_mv = out["mv"]
+                wp=self._wp, dct8x8=cfg.dct8x8,
+                qp_off=None if qp_off is None else torch.as_tensor(
+                    np.asarray(qp_off, np.int32), device=self.device))
+            self.last_mv = device_finalize.colocated_mv(
+                out, self.mbh * self.mbw)
             self.last_mv8 = out.get("mv8")
         data, nbits = device_finalize.pack_phase(sv_, sl_)
         payload = data[:(nbits + 7) // 8].cpu().numpy()
@@ -281,9 +379,10 @@ class TorchEncoder:
             return None
         return (w_, o_)
 
-    def _header_slots(self, slice_type: int, nal_type: int):
+    def _header_slots(self, slice_type: int, nal_type: int,
+                      nal_ref_idc: int = 3):
         """Slice-header codes as fixed-size device slot arrays."""
-        hw = self._slice_header_codes(slice_type, nal_type)
+        hw = self._slice_header_codes(slice_type, nal_type, nal_ref_idc)
         hv, hl = hw.to_slots(pad_to=device_finalize.MAX_HDR)
         return (torch.as_tensor(hv.astype(np.int64), device=self.device),
                 torch.as_tensor(hl.astype(np.int32), device=self.device))
