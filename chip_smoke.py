@@ -6,8 +6,8 @@ Builds every kernel of the port's main paths from csrc/ with nvcc (one
 nvcc per source, in parallel) and holds each kernel against its plain
 PyTorch version on the card: the full-search SAD (minima and quad mode),
 partition_refine_mc and deblock_apply (and deblock_apply's repeated calls
-against each other).  Then drives four 1080p
-CompressSessions on clips of textured content moving by a known shift:
+against each other).  Then drives seven 1080p
+CompressSessions on seeded clips of textured content:
 
   * slice 1, --preset ultrafast --tune zerolatency --me esa --qp 26
     (1 IDR + 3 P), which runs the SAD kernel once per P frame;
@@ -32,6 +32,14 @@ CompressSessions on clips of textured content moving by a known shift:
     promoted P and one B: 1 I, 7 P, 19 B): B frames, MB-tree and
     everything of the veryfast line: SAD and partition_refine_mc once
     per P anchor, deblock_apply once per I and P frame, none on B frames;
+  * medium, CompressSession() with no options, x264's --preset medium
+    (17 frames of a static texture that turns every fourth frame, so
+    that each P anchor matches the one two anchors back: 1 IDR, anchors
+    4 and 8 encoded per frame while the DPB fills, 12 and 16 batched
+    over a DPB of 3, 12 B frames): three references, trellis and
+    everything of the batched veryfast line but P partitions; the
+    hierarchical search once per reference of each P anchor,
+    deblock_apply once per I and P frame, the SAD and memc kernels never;
 
 and checks each stream, its motion vectors and its reconstruction, and
 holds the SAD (both modes) and partition_refine_mc kernels against their
@@ -39,11 +47,16 @@ plain versions once more on slice 2's last P frame's own inputs, all of
 them (deblock_apply on maps with 8x8-transformed MBs and per-MB QPs) on
 the veryfast phase's last P frame's, and all of them again on a batched
 P anchor's own inputs (per-MB QPs from MB-tree and AQ), where they are
-also timed.  Then it encodes a small clip with each command line on the
-card and on the CPU and requires identical bytes (for the veryfast and
-superfast lines with --min-keyint 2, on a clip with a fade and a scene
-cut; the B-frame lines on 30 frames with the cut inside a window, which
-drains pending B frames as a tail, and veryfast also with --threads 1).
+also timed, and the SAD kernel (once per reference) and deblock_apply
+(on maps with ref_idx) on the medium session's last anchor's DPB.  Then
+it encodes a small clip with each command line on the card and on the
+CPU and requires identical bytes (for the veryfast and superfast lines
+with --min-keyint 2, on a clip with a fade and a scene cut; the B-frame
+lines on 30 frames with the cut inside a window, which drains pending B
+frames as a tail, and veryfast also with --threads 1; the default
+session, --preset faster and slow, and --preset medium --threads 1 on
+that clip too, and --preset medium --tune zerolatency, also with --me
+esa, whose SAD launches are counted, on 8 frames with a cut at 5).
 Each kernel's launch count is set to 0 just before a session and read
 just after it.  Prints one line per phase
 with its elapsed seconds; the last three lines are the card's name and
@@ -84,6 +97,12 @@ CMDLINE_VF = "--preset veryfast --tune zerolatency --crf 23"
 CMDLINE_SF = "--preset superfast --tune zerolatency --crf 23"
 CMDLINE_VFB = "--preset veryfast --crf 23"       # batched, B frames, MB-tree
 CMDLINE_SFB = "--preset superfast --crf 23"      # batched, B frames
+# CompressSession() with no options: x264's --preset medium (ref 3,
+# trellis, B frames, MB-tree, weightp 2, CABAC, AQ, 8x8, --me hex, qpel)
+CMDLINE_MED = ""
+CMDLINE_FASTER = "--preset faster"
+CMDLINE_SLOW = "--preset slow"
+CMDLINE_MZL = "--preset medium --tune zerolatency"
 L3_FRAMES = 26           # two windows of 12 and a flush of 2
 VF_FRAMES = 5            # 1 IDR + 4 P, the last a fade
 VFB_FRAMES = 27          # 1 IDR, two windows of 12, a flush of 2
@@ -91,6 +110,13 @@ VFB_TYPES = {"I": 1, "P": 7, "B": 19}
 B_FRAMES = 30            # the card-vs-CPU clip of the B-frame lines
 B_CUT = 19               # its scene cut, inside the second window
 FADE = 0.8               # the fade frame's luma gain
+MED_FRAMES = 17          # 1 IDR; anchors 4 and 8 per frame while the DPB
+#                          fills, 12 and 16 batched over a DPB of 3
+MED_TYPES = {"I": 1, "P": 4, "B": 12}
+MED_DPB = [1, 2, 3, 3]   # references of the P anchors 4, 8, 12 and 16
+MED_FLICKER = 4          # frames between the texture's turns
+M_FRAMES, M_CUT = 8, 5   # the card-vs-CPU clip of the per-frame medium
+#                          lines: a full DPB of 3 at frames 3 and 4
 DEV = "cuda"
 KERNELS = ("sad", "memc", "deblock")
 SESSION_SIZE = (1920, 1080)            # the main paths' geometry
@@ -228,6 +254,31 @@ def live_clip(w: int, h: int, frames: int, seed: int, cut_at: int,
         if i >= fade_from:
             y = (y * (1.0 - 0.04 * (i - fade_from + 1))).astype(np.uint8)
         out.append((y, u, v))
+    return out
+
+
+def flicker_clip(w: int, h: int, frames: int, seed: int):
+    """Static I420 frames: a smooth large-scale pattern under a fine
+    texture that turns every MED_FLICKER frames between two states, the
+    second the first with each 8x8 block rotated by 180 degrees.  So each
+    P anchor of --bframes 3 (every fourth frame) looks like the anchor two
+    before it and unlike the one before, which no vector can fix, while
+    the 8x8-pooled frames the scene-cut detector and the weight analysis
+    read stay the same."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    big = 128 + 70 * np.sin(xx / 53.0 + 0.7) * np.cos(yy / 37.0 + 1.1)
+    fine = textured(h, w, seed).astype(np.float64) - 128
+    one = np.clip(0.5 * fine + big, 0, 255).astype(np.uint8)
+    two = one[:h - h % 8, :w - w % 8].reshape(
+        h // 8, 8, w // 8, 8)[:, ::-1, :, ::-1].reshape(h - h % 8,
+                                                        w - w % 8)
+    two = np.ascontiguousarray(np.pad(two, ((0, h % 8), (0, w % 8)),
+                                      mode="edge"))
+    out = []
+    for f in range(frames):
+        y = two if (f // MED_FLICKER) % 2 else one
+        u = np.ascontiguousarray(y[::2, ::2])
+        out.append((y, u, 255 - u))
     return out
 
 
@@ -1061,12 +1112,167 @@ def main() -> int:
               quad_ms=round(quad[0], 4), quad_ms_b2b=round(quad[4], 4))
         del out, recon, maps
 
-        # ---- 10. card vs CPU on a small clip, every command line -----------
+        # ---- 10. x264's --preset medium: CompressSession() with no options -
+        t = time.time()
+        clip_m = flicker_clip(w, h, MED_FRAMES, seed=8)
+        sess = CompressSession(extra_cmdline=CMDLINE_MED, device=DEV)
+        sess.begin(w, h)
+        enc, pipe = sess.encoder, sess._pipe
+        cfg = enc.cfg
+        check(pipe is not None and sess.mbtree is not None
+              and (enc.nref, cfg.trellis, enc.partitions, cfg.bframes,
+                   cfg.me_backend, cfg.subpel, cfg.weightp, cfg.cabac,
+                   cfg.dct8x8, cfg.i4x4, cfg.aq_strength > 0, cfg.deblock)
+              == (3, True, False, 3, "auto:hier", 2, 2, True, True, True,
+                  True, True),
+              "--preset medium's options reach the batched session")
+        R = cfg.search_range
+        # per frame type, each phase-1 call's device span; each P anchor's
+        # inputs, syntax tensors and hierarchical searches; the host CABAC
+        # of the frames encoded per frame; the emitted order
+        ev = {"I": [], "P": [], "B": []}
+        anchors, hier, tc_frame, order, i_recon = [], [], [], [], []
+        plain = {"p": dfin.encode_p_slots, "pgop": dfin.encode_pgop_slots,
+                 "bgop": dfin.encode_bgop_slots, "frame": enc.encode_frame,
+                 "hier": dv._hier_search, "emit": sess._emit}
+        searches = [0]
+
+        def count_hier(*a, **k):
+            searches[0] += 1
+            return plain["hier"](*a, **k)
+
+        def keep_anchor(*a, **k):
+            before = searches[0]
+            res = plain["p"](*a, **k)
+            hier.append(searches[0] - before)
+            anchors.append((a, res[-1]))
+            return res
+
+        def keep_frame(*a, **k):
+            res = timed(plain["frame"], lambda *a, force_idr=None, **k: (
+                "I" if force_idr else "P", 1))(*a, **k)
+            tc_frame.append(enc.transcode_ms)
+            if k.get("force_idr"):
+                i_recon.append(enc.last_recon[0])
+            return res
+
+        def keep_order(outs, *a, **k):
+            order.extend((it[1], it[3]) for it in outs)
+            return plain["emit"](outs, *a, **k)
+
+        dfin.encode_p_slots = keep_anchor
+        dfin.encode_pgop_slots = timed(
+            plain["pgop"], lambda rows, *a, **k: ("P", rows.shape[0]))
+        dfin.encode_bgop_slots = timed(
+            plain["bgop"], lambda rows, *a, **k: ("B", rows.shape[0]))
+        dv._hier_search = count_hier
+        enc.encode_frame = keep_frame
+        sess._emit = keep_order
+        try:
+            for m in mods.values():
+                m.LAUNCHES = 0
+            t1 = time.time()
+            outs = [sess.compress(frame) for frame in clip_m]
+            tail = sess.end()["tail"]
+            torch.cuda.synchronize()
+            wall = time.time() - t1
+            launches_m = {k: m.LAUNCHES for k, m in mods.items()}
+        finally:
+            dfin.encode_p_slots = plain["p"]
+            dfin.encode_pgop_slots = plain["pgop"]
+            dfin.encode_bgop_slots = plain["bgop"]
+            dv._hier_search = plain["hier"]
+        stream = b"".join(outs) + tail
+        types = "".join(ft for _, ft in order)
+        check({k: types.count(k) for k in "IPB"} == MED_TYPES
+              and sorted(d for d, _ in order) == list(range(MED_FRAMES)),
+              f"medium frame types {types}, want {MED_TYPES}")
+        vcl = [u for u in split_annexb(stream) if u.nal_unit_type in (1, 5)]
+        check("".join("I" if u.nal_unit_type == 5 else
+                      ("P" if u.nal_ref_idc else "B") for u in vcl) == types,
+              f"NAL types and nal_ref_idc follow the frame types {types}")
+        check(launches_m == {"sad": 0, "memc": 0,
+                             "deblock": MED_TYPES["I"] + MED_TYPES["P"]},
+              f"medium launches {launches_m}: want one deblock per I and P "
+              "frame and no SAD or memc (the hierarchical search)")
+        check(hier == MED_DPB, f"hierarchical searches per P anchor {hier}, "
+              f"want one per reference {MED_DPB}")
+        check(len(anchors) == MED_TYPES["P"]
+              and [a[0][1].dim() == 3 for a in anchors]
+              == [n > 1 for n in MED_DPB],
+              "the anchors search a stacked DPB once it holds two frames")
+        # the anchors with a full DPB: ref_idx 1 (two anchors back) is the
+        # match on the interior MBs
+        hist = torch.zeros(3, dtype=torch.int64)
+        older = []
+        for (a, out), nref in zip(anchors, MED_DPB):
+            if nref == 3:
+                ri = out["ref_idx"].reshape(enc.mbh, enc.mbw)
+                hist += torch.bincount(ri.flatten().long().cpu(),
+                                       minlength=3)
+                older.append(float((ri[1:-1, 1:-1] > 0).float().mean()))
+        check(len(older) == 2 and min(older) >= 0.9,
+              f"ref_idx > 0 on {older} of the interior MBs of the anchors "
+              "with a full DPB")
+        psnr_i = psnr(i_recon[0], clip_m[0][0])
+        psnr_last = psnr(enc.last_recon[0], clip_m[-1][0])
+        check(psnr_i > 30.0 and psnr_last > 30.0, f"PSNR of the I frame "
+              f"{psnr_i} and of the last anchor {psnr_last}")
+        ms = {k: [a.elapsed_time(b) / n for a, b, n in v]
+              for k, v in ev.items()}
+
+        # SAD (as --me esa runs it, once per reference) and deblock on the
+        # last anchor's own inputs: its DPB of 3, its maps with ref_idx
+        (a_src, a_ry, _, _, a_qp, *_), out = anchors[-1]
+        H, W = 16 * enc.mbh, 16 * enc.mbw
+        src8 = a_src[:H * W].reshape(H, W).contiguous()
+        maps = dv.loop_filter_maps(out, a_qp, enc.mbh, enc.mbw, False,
+                                   0, 0, enc.pps.chroma_qp_index_offset)
+        one_ref = dv.loop_filter_maps(
+            dict(out, ref_idx=torch.zeros_like(out["ref_idx"])), a_qp,
+            enc.mbh, enc.mbw, False, 0, 0, enc.pps.chroma_qp_index_offset)
+        check(int(out["ref_idx"].max()) > 0,
+              "the last anchor's maps carry ref_idx > 0")
+        ref_bs = sum(int((a != b).sum()) for a, b in zip(maps, one_ref))
+        recon = [out[k].contiguous()
+                 for k in ("recon_y", "recon_u", "recon_v")]
+        med_err = {"deblock": max_diff(dbk.deblock_apply(*recon, *maps),
+                                       dbk.deblock_apply_plain(*recon,
+                                                               *maps))}
+        for r in range(a_ry.shape[0]):
+            refp = dv._edge_pad(a_ry[r], R).to(torch.uint8).contiguous()
+            med_err[f"sad_ref{r}"] = max_diff(
+                sadk.sad_partition_minima(src8, refp, R, (1, 0, 0, 0)),
+                sadk.sad_partition_minima_plain(src8, refp, R, (1, 0, 0, 0)))
+        check(not any(med_err.values()),
+              f"kernels vs plain on the medium anchor's inputs: {med_err}")
+        err["deblock"] = max(err["deblock"], med_err["deblock"])
+        err["sad"] = max([err["sad"]] + [d for k, d in med_err.items()
+                                         if k.startswith("sad")])
+        phase("session_1080p_medium", t, bytes=len(stream),
+              wall_s=round(wall, 3), fps=round(MED_FRAMES / wall, 3),
+              types=types,
+              ms_per_frame={k: [round(x, 1) for x in v]
+                            for k, v in ms.items()},
+              cabac_ms=round(sum(pipe.transcode_ms) + sum(tc_frame), 2),
+              cabac_ms_batched=round(sum(pipe.transcode_ms), 2),
+              cabac_ms_per_frame=[round(x, 2) for x in tc_frame],
+              ref_idx_hist=hist.tolist(),
+              older_ref_share=[round(x, 4) for x in older],
+              hier_searches_per_anchor=hier, launches=launches_m,
+              psnr_i=round(psnr_i, 2), psnr_last=round(psnr_last, 2),
+              map_entries_moved_by_ref_idx=ref_bs,
+              session_max_abs_err=med_err, card=repr(card))
+        del anchors, out, recon, maps, one_ref
+
+        # ---- 11. card vs CPU on a small clip, every command line -----------
         t = time.time()
         small = moving_clip(*SMALL_SIZE, L3_FRAMES, seed=2, shift=HIER_SHIFT)
         live = live_clip(*SMALL_SIZE, 6, seed=5, cut_at=3, fade_from=4)
         live_b = live_clip(*SMALL_SIZE, B_FRAMES, seed=15, cut_at=B_CUT,
                            fade_from=B_FRAMES - 4)
+        live_m = live_clip(*SMALL_SIZE, M_FRAMES, seed=25, cut_at=M_CUT,
+                           fade_from=M_FRAMES - 2)
         # (command line, clip, display indices of the IDRs)
         lines = ((CMDLINE, small[:4], None), (CMDLINE_PARTS, small[:4], None),
                  (CMDLINE_L3, small, None), (CMDLINE_L4, small[:4], None),
@@ -1075,11 +1281,24 @@ def main() -> int:
                  (CMDLINE_VFB + " --min-keyint 2", live_b, [0, B_CUT]),
                  (CMDLINE_SFB + " --min-keyint 2", live_b, [0, B_CUT]),
                  (CMDLINE_VFB + " --min-keyint 2 --threads 1", live_b,
+                  [0, B_CUT]),
+                 # the multi-reference lines (the default session's scene
+                 # cut is a P or B frame: its --min-keyint is 25)
+                 (CMDLINE_MED, live_b, [0]),
+                 (CMDLINE_FASTER + " --min-keyint 2", live_b, [0, B_CUT]),
+                 (CMDLINE_SLOW + " --min-keyint 2", live_b, [0, B_CUT]),
+                 (CMDLINE_MZL + " --min-keyint 2", live_m, [0, M_CUT]),
+                 (CMDLINE_MZL + " --min-keyint 2 --me esa", live_m,
+                  [0, M_CUT]),
+                 ("--preset medium --min-keyint 2 --threads 1", live_b,
                   [0, B_CUT]))
+        esa_cmd = CMDLINE_MZL + " --min-keyint 2 --me esa"
         sizes, idrs = {}, {}
         for cmd, clip_s, want_idr in lines:
             got, shown = {}, {}
-            for d in (DEV, "cpu"):
+            # (DEV is "cpu" only where the script is rehearsed without a
+            # card: then one run stands for both)
+            for d in dict.fromkeys((DEV, "cpu")):
                 s = CompressSession(extra_cmdline=cmd, device=d)
                 s.begin(*SMALL_SIZE)
                 # the (display index, is_idr) of each AU the session emits
@@ -1087,8 +1306,13 @@ def main() -> int:
                 s._emit = (lambda outs, *a, _e=s._emit, _s=shown[d], **k:
                            _s.extend(it[1:3] for it in outs)
                            or _e(outs, *a, **k))
+                if d == DEV and cmd == esa_cmd:
+                    for m in mods.values():
+                        m.LAUNCHES = 0
                 outs = [s.compress(fr) for fr in clip_s]
                 got[d] = (outs, s.end()["tail"], s.frames_info().delay)
+                if d == DEV and cmd == esa_cmd:
+                    launches_esa = {k: m.LAUNCHES for k, m in mods.items()}
             check(got[DEV] == got["cpu"], f"card and CPU outputs differ at "
                   f"{SMALL_SIZE} for {cmd!r}")
             sizes[cmd] = len(b"".join(got["cpu"][0]) + got["cpu"][1])
@@ -1096,10 +1320,19 @@ def main() -> int:
             check(want_idr is None or idrs[cmd] == want_idr,
                   f"IDRs of {cmd!r} at {idrs[cmd]}, want {want_idr} (the "
                   "scene cut an IDR)")
+        # --me esa over the DPB: the SAD kernel once per reference of each
+        # P frame (1, 2, 3, 3 before the cut, 1, 2 after it)
+        esa_dpb = [min(d, 3) for d in range(1, M_CUT)] + \
+            [min(d, 3) for d in range(1, M_FRAMES - M_CUT)]
+        check(launches_esa == {"sad": sum(esa_dpb), "memc": 0,
+                               "deblock": M_FRAMES},
+              f"{esa_cmd!r} launches {launches_esa}: want the SAD kernel "
+              f"{esa_dpb} times per P frame, one deblock per frame")
         phase("card_vs_cpu", t, bytes=list(sizes.values()),
-              idrs=list(idrs.values()), identical=True)
+              idrs=list(idrs.values()), identical=True,
+              esa_launches=launches_esa)
 
-        # ---- 11. the record -------------------------------------------------
+        # ---- 12. the record -------------------------------------------------
         meta = {
             "sad": ("csrc/sad.cu", "x264vfw_tpu/ops/pallas/sad.py:239"),
             "memc": ("csrc/memc.cu", "x264vfw_tpu/ops/pallas/memc.py:253"),
@@ -1122,6 +1355,8 @@ def main() -> int:
                 "veryfast_launches": launches_v[k],
                 "slice2_launches": launches[k],
                 "l3_launches": launches3[k], "l4_launches": launches4[k],
+                "medium_launches": launches_m[k],
+                "medium_esa_launches": launches_esa[k],
                 "build_s": build_s[k], "ptxas": ptxas_report(k),
                 "shape": [H, W, R], "card": card}
             if k == "sad":

@@ -16,9 +16,11 @@ functions against the JAX package's, exactly.
   at one QP and per MB;
 * build_maps with the 8x8-transform map and a per-MB QP map;
 * encode_p_frame_core with AQ, weighted prediction and the 8x8 transform,
-  with and without P partitions, and the loop filter over its outputs
-  (the JAX package's outputs committed in tests/jax_refs/live.npz).
-Inputs come from numpy seeds.
+  with and without P partitions, and the loop filter over its outputs.
+The JAX package's outputs are committed: the cores' in
+tests/jax_refs/live.npz, build_maps' in calls.npz and the rest in
+units.npz (large ones as digests; tools/make_torch_jax_refs.py,
+hash-guarded).  Inputs come from numpy seeds.
 """
 
 import jax
@@ -45,13 +47,25 @@ def _t(a):
     return torch.from_numpy(np.array(a))        # a writable copy
 
 
-@pytest.mark.parametrize("intra", [False, True])
-def test_per_mb_qp_transforms_match_jax(intra):
+@pytest.fixture(scope="module")
+def refs():
+    return torch_jax_refs.load("units")
+
+
+def _per_mb_case(intra):
     rng = np.random.default_rng(1 + intra)
     qp = np.arange(N * 3, dtype=np.int32) % 52          # every QP
     res = rng.integers(-255, 256, (N * 3, 16, 4, 4))
     dc = rng.integers(-2040, 2041, (N * 3, 2, 2))
     ldc = rng.integers(-4080, 4081, (N * 3, 4, 4))
+    return qp, res, dc, ldc
+
+
+PER_MB_OUT = ("w", "q", "dq", "cq", "cdq", "lq", "ldq", "cqp")
+
+
+def _jax_per_mb(intra) -> dict:
+    qp, res, dc, ldc = (jnp.asarray(a) for a in _per_mb_case(intra))
 
     @jax.jit
     def jax_side(w, qp, dc, ldc):
@@ -63,25 +77,37 @@ def test_per_mb_qp_transforms_match_jax(intra):
                 jt.chroma_qp(qp, -3))
 
     w = jt.fdct4x4(res)
-    q, dq, cq, cdq, lq, ldq, cqp = jax_side(w, jnp.asarray(qp),
-                                            jnp.asarray(dc), jnp.asarray(ldc))
-    qpt = _t(qp)
-    _eq(tt.quant4x4(_t(w), qpt[:, None], intra), q, "quant4x4")
-    _eq(tt.dequant4x4(_t(q), qpt[:, None]), dq, "dequant4x4")
-    _eq(tt.chroma_dc_fwd_quant(_t(dc), qpt, intra), cq, "chroma dc")
-    _eq(tt.chroma_dc_dequant(_t(cq), qpt), cdq, "chroma dc dequant")
-    _eq(tt.luma_dc_fwd_quant(_t(ldc), qpt, intra), lq, "luma dc")
-    _eq(tt.luma_dc_dequant(_t(lq), qpt), ldq, "luma dc dequant")
-    _eq(tt.chroma_qp(qpt, -3), cqp, "chroma_qp")
+    return dict(zip(PER_MB_OUT, (w, *jax_side(w, qp, dc, ldc))))
 
 
 @pytest.mark.parametrize("intra", [False, True])
-def test_8x8_family_matches_jax(intra):
+def test_per_mb_qp_transforms_match_jax(refs, intra):
+    qp, res, dc, ldc = _per_mb_case(intra)
+    want = {k: refs[f"aq_pmq{int(intra)}_{k}"] for k in PER_MB_OUT}
+    qpt = _t(qp)
+    _eq(tt.fdct4x4(_t(res)), want["w"], "fdct4x4")
+    w, q, cq, lq = (want[k] for k in ("w", "q", "cq", "lq"))
+    _eq(tt.quant4x4(_t(w), qpt[:, None], intra), q, "quant4x4")
+    _eq(tt.dequant4x4(_t(q), qpt[:, None]), want["dq"], "dequant4x4")
+    _eq(tt.chroma_dc_fwd_quant(_t(dc), qpt, intra), cq, "chroma dc")
+    _eq(tt.chroma_dc_dequant(_t(cq), qpt), want["cdq"], "chroma dc dequant")
+    _eq(tt.luma_dc_fwd_quant(_t(ldc), qpt, intra), lq, "luma dc")
+    _eq(tt.luma_dc_dequant(_t(lq), qpt), want["ldq"], "luma dc dequant")
+    _eq(tt.chroma_qp(qpt, -3), want["cqp"], "chroma_qp")
+
+
+def _f8_case(intra):
     rng = np.random.default_rng(3 + intra)
     res = rng.integers(-255, 256, (N, 4, 8, 8))
     res[0] = 255                                        # the largest W8
+    return res, (np.arange(N, dtype=np.int32) * 7) % 52
+
+
+def _jax_8x8_family(intra) -> dict:
+    """The 8x8 family on _f8_case: digests of each QP's quant8x8,
+    dequant8x8 and idct8x8_core outputs, and per MB."""
+    res, qp = _f8_case(intra)
     w8 = jt.fdct8x8(res)
-    _eq(tt.fdct8x8(_t(res)), w8, "fdct8x8")
 
     @jax.jit
     def chain(w, qp):       # one QP for the call, as an int does
@@ -89,20 +115,42 @@ def test_8x8_family_matches_jax(intra):
         d = jt.dequant8x8(q, qp)
         return q, d, jt.idct8x8_core(d)
 
-    for qp in range(52):
-        q8, d, r = chain(w8, jnp.int32(qp))
-        _eq(tt.quant8x8(_t(w8), qp, intra), q8, f"quant8x8 qp {qp}")
-        _eq(tt.dequant8x8(_t(q8), qp), d, f"dequant8x8 qp {qp}")
-        _eq(tt.idct8x8_core(_t(d)), r, f"idct8x8 qp {qp}")
-    qp = (np.arange(N, dtype=np.int32) * 7) % 52
-    qpj, qpt = jnp.asarray(qp)[:, None], _t(qp)[:, None]
+    dig = torch_jax_refs.digest
+    out = {"w8": dig(w8)}
+    for qp_ in range(52):
+        for name, a in zip(("q", "d", "r"), chain(w8, jnp.int32(qp_))):
+            out[f"{name}{qp_}"] = dig(a)
+    qpj = jnp.asarray(qp)[:, None]
     q8 = jt.quant8x8(w8, qpj, intra)
-    _eq(tt.quant8x8(_t(w8), qpt, intra), q8, "quant8x8 per MB")
-    _eq(tt.dequant8x8(_t(q8), qpt), jt.dequant8x8(q8, qpj),
-        "dequant8x8 per MB")
     z = jt.zigzag8x8_scan(q8)
-    _eq(tt.zigzag8x8_scan(_t(q8)), z, "zigzag8x8_scan")
-    _eq(tt.zigzag8x8_unscan(_t(z)), jt.zigzag8x8_unscan(z), "unscan")
+    out.update(q_mb=dig(q8), d_mb=dig(jt.dequant8x8(q8, qpj)), z=dig(z),
+               unz=dig(jt.zigzag8x8_unscan(z)))
+    return out
+
+
+@pytest.mark.parametrize("intra", [False, True])
+def test_8x8_family_matches_jax(refs, intra):
+    """fdct8x8, then quant8x8 -> dequant8x8 -> idct8x8_core at every QP,
+    per MB and the 8x8 zigzag, each against the digest of the JAX
+    package's output on the same inputs (each step fed the port's own
+    previous output, equal to the JAX package's when the digests are)."""
+    res, qp = _f8_case(intra)
+    want = {k[len(f"aq_f8{int(intra)}_"):]: str(v) for k, v in refs.items()
+            if k.startswith(f"aq_f8{int(intra)}_")}
+    dig = torch_jax_refs.digest
+    w8 = tt.fdct8x8(_t(res))
+    assert dig(w8) == want["w8"], "fdct8x8"
+    for qp_ in range(52):
+        q8 = tt.quant8x8(w8, qp_, intra)
+        d = tt.dequant8x8(q8, qp_)
+        for name, a in (("q", q8), ("d", d), ("r", tt.idct8x8_core(d))):
+            assert dig(a) == want[f"{name}{qp_}"], f"{name} qp {qp_}"
+    qpt = _t(qp)[:, None]
+    q8 = tt.quant8x8(w8, qpt, intra)
+    z = tt.zigzag8x8_scan(q8)
+    for name, a in (("q_mb", q8), ("d_mb", tt.dequant8x8(q8, qpt)),
+                    ("z", z), ("unz", tt.zigzag8x8_unscan(z))):
+        assert dig(a) == want[name], name
 
 
 def _sweep_frames():
@@ -133,13 +181,30 @@ def _sweep_frames():
 ORDER_DEPENDENT = {(67, 26, 1.0): 8}
 
 
-def test_aq_qp_map_matches_jax_on_a_dense_sweep():
+AQ_SETTINGS = ((26, 1.0), (40, 0.7), (10, 1.5), (1, 1.0))
+
+
+def _jax_aq_sweep() -> dict:
+    """The jitted aq_qp_map over the sweep at each setting, (160, 4, 24),
+    and the eager run of each ORDER_DEPENDENT case."""
     fn = jax.jit(jdev.aq_qp_map, static_argnums=(2,))
+    frames = list(_sweep_frames())
+    out = {"aq_sweep": np.stack([
+        np.stack([np.asarray(fn(jnp.asarray(y), qp, s))
+                  for qp, s in AQ_SETTINGS]) for y in frames])}
+    for (i, qp, s) in ORDER_DEPENDENT:
+        out[f"aq_sweep_eager_{i}_{qp}"] = np.asarray(
+            jdev.aq_qp_map(jnp.asarray(frames[i]), qp, s))
+    return out
+
+
+def test_aq_qp_map_matches_jax_on_a_dense_sweep(refs):
+    want_all = refs["aq_sweep"]
     mbs = 0
     for i, y in enumerate(_sweep_frames()):
-        for qp, strength in ((26, 1.0), (40, 0.7), (10, 1.5), (1, 1.0)):
+        for j, (qp, strength) in enumerate(AQ_SETTINGS):
             got = tdev.aq_qp_map(_t(y), qp, strength).numpy()
-            want = np.asarray(fn(jnp.asarray(y), qp, strength))
+            want = want_all[i, j]
             mbs += got.size
             k = ORDER_DEPENDENT.get((i, qp, strength))
             if k is None:
@@ -148,22 +213,34 @@ def test_aq_qp_map_matches_jax_on_a_dense_sweep():
             # the pinned MB: JAX's jit and eager runs disagree there, and
             # the port gives what the exact arithmetic gives
             assert np.flatnonzero(got != want).tolist() == [k]
-            eager = np.asarray(jdev.aq_qp_map(jnp.asarray(y), qp, strength))
+            eager = refs[f"aq_sweep_eager_{i}_{qp}"]
             assert eager[k] != want[k] and got[k] == eager[k] == 25
     assert mbs == 160 * 24 * 4
 
 
-def test_realized_qp_chain_matches_jax():
+def _chain_cases():
     rng = np.random.default_rng(6)
     for slice_qp in (20, 33):
         qp = rng.integers(1, 52, 200).astype(np.int32)
         coded = rng.random(200) < 0.4
         coded[:5] = False                    # no coded MB before the 6th
+        yield slice_qp, qp, coded
+
+
+def _jax_chain() -> dict:
+    out = {}
+    for slice_qp, qp, coded in _chain_cases():
+        for i, a in enumerate(jdev.realized_qp_chain(
+                jnp.asarray(qp), jnp.asarray(coded), slice_qp)):
+            out[f"aq_chain_{slice_qp}_{i}"] = np.asarray(a)
+    return out
+
+
+def test_realized_qp_chain_matches_jax(refs):
+    for slice_qp, qp, coded in _chain_cases():
         got = tdev.realized_qp_chain(_t(qp), _t(coded), slice_qp)
-        want = jdev.realized_qp_chain(jnp.asarray(qp), jnp.asarray(coded),
-                                      slice_qp)
-        for g, w in zip(got, want):
-            _eq(g, w)
+        for i, g in enumerate(got):
+            _eq(g, refs[f"aq_chain_{slice_qp}_{i}"])
 
 
 # the only |level| in 1..2^16 where the JAX package's _clz32 (31 minus a
@@ -174,19 +251,16 @@ CLZ32_JAX_OFF_BY_ONE = (8192, 32768)
 LEVEL_MAX = 8191
 
 
-def test_clz32_and_lambda_tables_match_jax():
+def _jax_clz32_and_lambda() -> dict:
+    """The JAX package's _clz32 over |level| 1..2^16, the largest |level|
+    its 4x4 and 8x8 quantisers give at any QP, and the t8 decision's
+    lambda over QP 0..51."""
     a = np.arange(1, (1 << 16) + 1, dtype=np.int32)
-    got = tdev._clz32(_t(a)).numpy()
-    want = np.asarray(jax.jit(jdev._clz32)(jnp.asarray(a)))
-    assert a[got != want].tolist() == list(CLZ32_JAX_OFF_BY_ONE)
-    assert (got == 32 - np.floor(np.log2(a.astype(np.float64))) - 1).all()
-    # the largest |level| the 4x4 and 8x8 quantisers give, at every QP
     w4 = jt.fdct4x4(np.full((1, 4, 4), 255) * np.array([[1, -1, 1, -1]]))
     w8 = jt.fdct8x8(np.full((2, 8, 8), 255) * np.array([[1, -1] * 4]))
     top = max(max(int(jnp.abs(jt.quant4x4(w4 * 8, qp, True)).max()),
                   int(jnp.abs(jt.quant8x8(w8 * 8, qp, True)).max()))
               for qp in range(52))
-    assert top == LEVEL_MAX < min(CLZ32_JAX_OFF_BY_ONE)
 
     @jax.jit
     def lam2(qv):        # the expression of _luma_residual_pipeline's t8
@@ -194,8 +268,20 @@ def test_clz32_and_lambda_tables_match_jax():
             0.9 * jnp.exp2((qv.astype(jnp.float32) - 12.0) / 3.0))
         ).astype(jnp.int32)
 
-    np.testing.assert_array_equal(tdev.LAM2, np.asarray(lam2(
-        jnp.arange(52, dtype=jnp.int32))))
+    return {"aq_clz32": np.asarray(jax.jit(jdev._clz32)(jnp.asarray(a))),
+            "aq_level_max": top,
+            "aq_lam2": np.asarray(lam2(jnp.arange(52, dtype=jnp.int32)))}
+
+
+def test_clz32_and_lambda_tables_match_jax(refs):
+    a = np.arange(1, (1 << 16) + 1, dtype=np.int32)
+    got = tdev._clz32(_t(a)).numpy()
+    want = refs["aq_clz32"]
+    assert a[got != want].tolist() == list(CLZ32_JAX_OFF_BY_ONE)
+    assert (got == 32 - np.floor(np.log2(a.astype(np.float64))) - 1).all()
+    # the largest |level| the 4x4 and 8x8 quantisers give, at every QP
+    assert int(refs["aq_level_max"]) == LEVEL_MAX < min(CLZ32_JAX_OFF_BY_ONE)
+    np.testing.assert_array_equal(tdev.LAM2, refs["aq_lam2"])
 
 
 def _mbs(rng, n, spread):
@@ -206,27 +292,46 @@ def _mbs(rng, n, spread):
     return src, pred
 
 
-@pytest.mark.parametrize("per_mb", [False, True])
-@pytest.mark.parametrize("decimate", [False, True])
-def test_luma_residual_pipeline_t8_matches_jax(per_mb, decimate):
+def _t8_cases(per_mb, decimate):
+    """(src, pred, [QP cases]) of the t8 pipeline test: per_mb, one (n, 1)
+    QP array; else four QPs."""
     rng = np.random.default_rng(7 + 2 * per_mb + decimate)
     n = 48
     src, pred = _mbs(rng, n, 12)
+    if per_mb:
+        return src, pred, [rng.integers(10, 52, n).astype(np.int32)[:, None]]
+    return src, pred, [14, 26, 38, 50]
+
+
+def _jax_t8_pipeline() -> dict:
     fn = jax.jit(jdev._luma_residual_pipeline,
                  static_argnames=("intra", "decimate", "trellis", "t8"))
-    if per_mb:
-        qp = rng.integers(10, 52, n).astype(np.int32)
-        cases = [(jnp.asarray(qp)[:, None], _t(qp)[:, None])]
-    else:
-        cases = [(q, q) for q in (14, 26, 38, 50)]
-    for qj, qt in cases:
-        want = fn(jnp.asarray(src), jnp.asarray(pred), qj, intra=False,
-                  decimate=decimate, t8=True)
-        got = tdev._luma_residual_pipeline(_t(src), _t(pred), qt,
-                                           intra=False, decimate=decimate,
-                                           t8=True)
-        for name, g, w in zip(("levels", "res", "t8"), got, want):
-            _eq(g, w, name)
+    out = {}
+    for per_mb in (False, True):
+        for decimate in (False, True):
+            src, pred, qps = _t8_cases(per_mb, decimate)
+            for c, qp in enumerate(qps):
+                want = fn(jnp.asarray(src), jnp.asarray(pred),
+                          jnp.asarray(qp) if per_mb else qp, intra=False,
+                          decimate=decimate, t8=True)
+                for name, w in zip(("levels", "res", "t8"), want):
+                    out[f"aq_t8p_{int(per_mb)}{int(decimate)}_{c}_{name}"] \
+                        = torch_jax_refs.digest(w)
+    return out
+
+
+@pytest.mark.parametrize("per_mb", [False, True])
+@pytest.mark.parametrize("decimate", [False, True])
+def test_luma_residual_pipeline_t8_matches_jax(refs, per_mb, decimate):
+    src, pred, qps = _t8_cases(per_mb, decimate)
+    n = src.shape[0]
+    for c, qp in enumerate(qps):
+        got = tdev._luma_residual_pipeline(
+            _t(src), _t(pred), _t(qp) if per_mb else qp, intra=False,
+            decimate=decimate, t8=True)
+        for name, g in zip(("levels", "res", "t8"), got):
+            key = f"aq_t8p_{int(per_mb)}{int(decimate)}_{c}_{name}"
+            assert torch_jax_refs.digest(g) == str(refs[key]), (name, qp)
         assert 0 < int(got[2].sum()) < n      # both transforms win
 
 
@@ -247,6 +352,21 @@ def maps_case():
     t8 = np.kron(rng.random((mbh, mbw)) < 0.5,
                  np.ones((4, 4), bool)).astype(bool)
     return meta, t8
+
+
+def jax_units() -> dict:
+    """The JAX package's side of this file's tests, committed in
+    tests/jax_refs/units.npz (tools/make_torch_jax_refs.py units)."""
+    out = {}
+    for intra in (False, True):
+        for k, a in _jax_per_mb(intra).items():
+            out[f"aq_pmq{int(intra)}_{k}"] = np.asarray(a)
+        for k, v in _jax_8x8_family(intra).items():
+            out[f"aq_f8{int(intra)}_{k}"] = v
+    for make in (_jax_aq_sweep, _jax_chain, _jax_clz32_and_lambda,
+                 _jax_t8_pipeline):
+        out.update(make())
+    return out
 
 
 def test_build_maps_with_t8_and_per_mb_qp_match_jax():

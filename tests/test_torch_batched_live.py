@@ -89,89 +89,101 @@ def refs():
     return torch_jax_refs.load("batched")
 
 
-@pytest.fixture(scope="module")
-def port_runs():
-    """Each line's port session on the CPU: the compress() returns, tail
-    and delay; every (display index, frame type) in decode order; the
-    I and P frames' reference planes in decode order; the CAVLC B slices
+def spied_session(cmd: str, clip: list, w: int = W, h: int = H) -> dict:
+    """A port session on the CPU over clip, with: the compress() returns,
+    tail and delay; every (display index, frame type) in decode order;
+    the I and P frames' reference planes in decode order, and each P
+    frame's ref_idx field (None with one reference); the CAVLC B slices
     handed to the transcoder and what it returned; the weights of each P
     frame encoded per frame ({display index: (w, o) or None}); and for
     each P slice header written in a batch, the one the JAX package
     writes there (with the weights of the last P frame encoded per frame)
     beside the port's ({display index: (JAX, port)}, each as the
-    transcoder's aligned header bytes)."""
-    runs = {}
+    transcoder's aligned header bytes), and the batch's active reference
+    count ({display index: _cur_nref})."""
     keep_ref, keep_tc = dfin._maybe_deblock, tct.transcode_slice
     keep_emit = CompressSession._emit
     keep_enc = tenc.TorchEncoder.encode_frame
     keep_hdr = tenc.TorchEncoder._slice_header_codes
     keep_pb = tpipe.BatchPipeline._p_batch
-    for name, cmd in LINES.items():
-        rec = {"recon": [], "order": [], "b_slices": [], "wps": {},
-               "last_wp": None, "batch_hdr": {}, "in_batch": False}
+    rec = {"recon": [], "ref_idx": [], "order": [], "b_slices": [],
+           "wps": {}, "last_wp": None, "batch_hdr": {}, "batch_nref": {},
+           "in_batch": False, "in_frame": False}
 
-        def spy_ref(out, *a, **k):
-            planes = keep_ref(out, *a, **k)
-            rec["recon"].append(planes[0][:H, :W].numpy().copy())
-            return planes
+    def spy_ref(out, *a, **k):
+        planes = keep_ref(out, *a, **k)
+        rec["recon"].append(planes[0][:h, :w].numpy().copy())
+        if "levels" in out:
+            rec["ref_idx"].append(out.get("ref_idx"))
+        return planes
 
-        def spy_tc(payload, hdr_bits, slice_type, *a, **k):
-            body = keep_tc(payload, hdr_bits, slice_type, *a, **k)
-            if slice_type == "B":
-                rec["b_slices"].append((np.array(payload), hdr_bits, a, k,
-                                        body))
-            return body
+    def spy_tc(payload, hdr_bits, slice_type, *a, **k):
+        body = keep_tc(payload, hdr_bits, slice_type, *a, **k)
+        if slice_type == "B":
+            rec["b_slices"].append((np.array(payload), hdr_bits, a, k, body))
+        return body
 
-        def spy_emit(self, outs, *a, **k):
-            rec["order"] += [(it[1], it[3]) for it in outs]
-            return keep_emit(self, outs, *a, **k)
+    def spy_emit(self, outs, *a, **k):
+        rec["order"] += [(it[1], it[3]) for it in outs]
+        return keep_emit(self, outs, *a, **k)
 
-        def spy_enc(self, *a, **k):
-            au = keep_enc(self, *a, **k)
-            if not k.get("force_idr"):
-                rec["wps"][self.poc // 2 + self.poc_base] = self._wp
-                rec["last_wp"] = self._wp
-            return au
-
-        def spy_hdr(self, slice_type, *a, **k):
-            if rec["in_batch"] and slice_type == SLICE_P:
-                port, stale = self._wp, rec["last_wp"]
-                self._wp = stale
-                want = keep_hdr(self, slice_type, *a, **k)
-                self._wp = port
-                rec["batch_hdr"][self.poc // 2 + self.poc_base] = tuple(
-                    tct._header_bytes(w.to_rbsp(), w.bit_position)
-                    for w in (want, keep_hdr(self, slice_type, *a, **k)))
-            return keep_hdr(self, slice_type, *a, **k)
-
-        def spy_pb(self, *a, **k):
-            rec["in_batch"] = True
-            try:
-                return keep_pb(self, *a, **k)
-            finally:
-                rec["in_batch"] = False
-
-        dfin._maybe_deblock, tct.transcode_slice = spy_ref, spy_tc
-        CompressSession._emit = spy_emit
-        tenc.TorchEncoder.encode_frame = spy_enc
-        tenc.TorchEncoder._slice_header_codes = spy_hdr
-        tpipe.BatchPipeline._p_batch = spy_pb
+    def spy_enc(self, *a, **k):
+        rec["in_frame"] = True
         try:
-            s = CompressSession(extra_cmdline=cmd, device="cpu")
-            s.begin(W, H)
-            outs = [s.compress(f) for f in batched_clip()]
-            rec.update(outs=outs, tail=s.end()["tail"],
-                       delay=s.frames_info().delay, cfg=s.encoder.cfg,
-                       enc=s.encoder,
-                       batched=s._pipe is not None)
+            au = keep_enc(self, *a, **k)
         finally:
-            dfin._maybe_deblock, tct.transcode_slice = keep_ref, keep_tc
-            CompressSession._emit = keep_emit
-            tenc.TorchEncoder.encode_frame = keep_enc
-            tenc.TorchEncoder._slice_header_codes = keep_hdr
-            tpipe.BatchPipeline._p_batch = keep_pb
-        runs[name] = rec
-    return runs
+            rec["in_frame"] = False
+        if not k.get("force_idr"):
+            rec["wps"][self.poc // 2 + self.poc_base] = self._wp
+            rec["last_wp"] = self._wp
+        return au
+
+    def spy_hdr(self, slice_type, *a, **k):
+        if rec["in_batch"] and not rec["in_frame"] and slice_type == SLICE_P:
+            port, stale = self._wp, rec["last_wp"]
+            self._wp = stale
+            want = keep_hdr(self, slice_type, *a, **k)
+            self._wp = port
+            d = self.poc // 2 + self.poc_base
+            rec["batch_hdr"][d] = tuple(
+                tct._header_bytes(hw.to_rbsp(), hw.bit_position)
+                for hw in (want, keep_hdr(self, slice_type, *a, **k)))
+            rec["batch_nref"][d] = self._cur_nref
+        return keep_hdr(self, slice_type, *a, **k)
+
+    def spy_pb(self, *a, **k):
+        rec["in_batch"] = True
+        try:
+            return keep_pb(self, *a, **k)
+        finally:
+            rec["in_batch"] = False
+
+    dfin._maybe_deblock, tct.transcode_slice = spy_ref, spy_tc
+    CompressSession._emit = spy_emit
+    tenc.TorchEncoder.encode_frame = spy_enc
+    tenc.TorchEncoder._slice_header_codes = spy_hdr
+    tpipe.BatchPipeline._p_batch = spy_pb
+    try:
+        s = CompressSession(extra_cmdline=cmd, device="cpu")
+        s.begin(w, h)
+        outs = [s.compress(f) for f in clip]
+        rec.update(outs=outs, tail=s.end()["tail"],
+                   delay=s.frames_info().delay, cfg=s.encoder.cfg,
+                   enc=s.encoder, batched=s._pipe is not None)
+    finally:
+        dfin._maybe_deblock, tct.transcode_slice = keep_ref, keep_tc
+        CompressSession._emit = keep_emit
+        tenc.TorchEncoder.encode_frame = keep_enc
+        tenc.TorchEncoder._slice_header_codes = keep_hdr
+        tpipe.BatchPipeline._p_batch = keep_pb
+    return rec
+
+
+@pytest.fixture(scope="module")
+def port_runs():
+    """Each line's spied_session over batched_clip()."""
+    return {name: spied_session(cmd, batched_clip())
+            for name, cmd in LINES.items()}
 
 
 def departures(run) -> dict:

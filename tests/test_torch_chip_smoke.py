@@ -9,8 +9,11 @@ flush), the hierarchical quarter-pel session with the loop filter, the
 veryfast session (CABAC, I4x4, the 8x8 transform, AQ, weighted P) with
 its kernels held against their plain versions, the batched veryfast
 session with B frames and MB-tree (1 I, 7 P, 19 B) with its kernels held
-against their plain versions on a P anchor's inputs, and card against
-CPU for all nine command lines.
+against their plain versions on a P anchor's inputs, the default
+session (x264's --preset medium: three references, trellis; 1 I, 4 P,
+12 B) with the SAD and deblock kernels held against their plain versions
+on its last anchor's DPB and maps, and card against CPU for all fifteen
+command lines.
 Also: without a card the script exits non-zero and prints no result.
 """
 
@@ -73,9 +76,11 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(cs, "SAD_FLAT", (32, 48, 3))
     monkeypatch.setattr(cs, "MEMC_EXTRA", (32, 64, 4))
     monkeypatch.setattr(cs, "DEBLOCK_MBS", ((3, 4), (2, 5)))
-    # the B-frame lines' card-vs-CPU clip: the scene cut (frame 19) and
-    # two frames after it (the script's 30 on the card)
-    monkeypatch.setattr(cs, "B_FRAMES", 22)
+    # the B-frame lines' card-vs-CPU clip: a scene cut at frame 9, two
+    # mini-GOPs before it, and four frames after it (the script's 30
+    # frames with the cut at 19 on the card)
+    monkeypatch.setattr(cs, "B_FRAMES", 14)
+    monkeypatch.setattr(cs, "B_CUT", 9)
     monkeypatch.setattr(cs, "card_line", lambda: "cpu, 0 W")
     monkeypatch.setattr(cs, "sm_clock_hz", lambda: 1.98e9)
     monkeypatch.setattr(cs, "sad_sass_per_sad4", lambda: None)
@@ -137,11 +142,16 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     # L3 runs none of the kernels, L4 the loop filter once per frame
     assert [k["l3_launches"] for k in kern] == [0, 0, 0]
     assert [k["l4_launches"] for k in kern] == [0, 0, 4]
+    # --preset medium: the hierarchical search, one deblock per I and P
+    # frame; with --me esa the SAD kernel once per reference of each P
+    # frame (1, 2, 3, 3, then 1, 2 after the cut)
+    assert [k["medium_launches"] for k in kern] == [0, 0, 5]
+    assert [k["medium_esa_launches"] for k in kern] == [12, 0, 8]
     phases = {ln.split("] ")[1].split(":")[0] for ln in lines
               if ln.startswith("[")}
     assert {"session_1080p_ultrafast_crf23", "session_1080p_hier_qpel_deblock",
             "session_1080p_veryfast", "session_1080p_veryfast_batched",
-            "card_vs_cpu"} <= phases
+            "session_1080p_medium", "card_vs_cpu"} <= phases
     assert kern[2]["launches_per_frame"] == 1
     assert kern[0]["slice1_launches"] == 3
     H, W, R = kern[0]["shape"]     # one VABSDIFF4 per 4 byte differences

@@ -7,7 +7,8 @@ against the numpy spec-order golden model apply_maps_np and against the
 JAX hot path's deblock_apply_wavefront, on cases where every bS value
 0..4 occurs; encode.device.apply_loop_filter against the JAX one for an
 intra frame and a partitioned inter frame (the JAX wavefront's and
-apply_loop_filter's outputs committed in tests/jax_refs/core.npz,
+apply_loop_filter's outputs committed in tests/jax_refs/core.npz, the
+maps and the golden model's planes in tests/jax_refs/units.npz,
 tools/make_torch_jax_refs.py, hash-guarded).  Inputs come from numpy
 seeds.  Tolerance: none.  The CUDA kernel is held against the plain version on
 the card (the `cuda` test below and chip_smoke.py).
@@ -50,51 +51,78 @@ def _planes(mbh, mbw, seed):
     return y, u.astype(np.int32), (255 - u).astype(np.int32)
 
 
-_jax_build_maps = jax.jit(jdb.build_maps, static_argnums=(5, 6, 7))
-
-
 @pytest.fixture(scope="module")
 def refs():
     return torch_jax_refs.load("core")
 
 
-def _maps_both(meta, offA, offB, cqo):
-    want = _jax_build_maps(*(jnp.asarray(a) for a in meta), offA, offB, cqo)
-    got = tdb.build_maps(*(torch.from_numpy(a) for a in meta), offA, offB,
-                         cqo)
-    return [np.asarray(w) for w in want], got
+@pytest.fixture(scope="module")
+def units():
+    return torch_jax_refs.load("units")
 
 
-@pytest.mark.parametrize("kind", ["intra", "inter"])
-def test_build_maps_matches_jax(kind):
-    mbh, mbw = 4, 5
-    intra, tc4, mv4, ref4, qp = _metadata(mbh, mbw, seed=1)
+def _kind_meta(kind):
+    """build_maps' metadata at 4x5 MBs, all intra or all inter."""
+    intra, tc4, mv4, ref4, qp = _metadata(4, 5, seed=1)
     if kind == "intra":
         intra[:] = True
         tc4[:] = 0
         mv4[:] = 0
     else:
         intra[:] = False
-    want, got = _maps_both((intra, tc4, mv4, ref4, qp), -12, 6, 2)
-    for w, g in zip(want, got):
-        assert g.dtype == torch.int32
-        np.testing.assert_array_equal(g.numpy(), w)
+    return intra, tc4, mv4, ref4, qp
 
 
+KIND_OFFSETS = (-12, 6, 2)                  # offA, offB, chroma offset
 WAVEFRONT_CASES = [(3, 4, -12, 12), (4, 5, 12, -12)]
 
 
+def jax_units() -> dict:
+    """The JAX package's build_maps on this file's cases and its numpy
+    golden model apply_maps_np on the wavefront cases, committed in
+    tests/jax_refs/units.npz (tools/make_torch_jax_refs.py units)."""
+    maps = jax.jit(jdb.build_maps, static_argnums=(5, 6, 7))
+    out = {}
+    for kind in ("intra", "inter"):
+        for i, m in enumerate(maps(*(jnp.asarray(a) for a in _kind_meta(
+                kind)), *KIND_OFFSETS)):
+            out[f"db_maps_{kind}_{i}"] = np.asarray(m)
+    for mbh, mbw, offA, offB in WAVEFRONT_CASES:
+        ms = [np.asarray(m) for m in maps(*(jnp.asarray(a) for a in _metadata(
+            mbh, mbw, seed=mbh * mbw)), offA, offB, 0)]
+        gold = [p.copy() for p in _planes(mbh, mbw, seed=mbw)]
+        jdb.apply_maps_np(*gold, *ms)
+        for i, m in enumerate(ms):
+            out[f"db_maps_{mbh}x{mbw}_{i}"] = m
+        for p, g in zip("yuv", gold):
+            out[f"db_gold_{mbh}x{mbw}_{p}"] = g
+    return out
+
+
+@pytest.mark.parametrize("kind", ["intra", "inter"])
+def test_build_maps_matches_jax(units, kind):
+    got = tdb.build_maps(*(torch.from_numpy(a) for a in _kind_meta(kind)),
+                         *KIND_OFFSETS)
+    for i, g in enumerate(got):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), units[f"db_maps_{kind}_{i}"])
+
+
 @pytest.mark.parametrize("mbh,mbw,offA,offB", WAVEFRONT_CASES)
-def test_deblock_plain_matches_golden_and_wavefront(refs, mbh, mbw, offA,
-                                                    offB):
+def test_deblock_plain_matches_golden_and_wavefront(refs, units, mbh, mbw,
+                                                    offA, offB):
     meta = _metadata(mbh, mbw, seed=mbh * mbw)
-    maps, tmaps = _maps_both(meta, offA, offB, 0)
+    tmaps = tdb.build_maps(*(torch.from_numpy(a) for a in meta), offA, offB,
+                           0)
+    maps = [units[f"db_maps_{mbh}x{mbw}_{i}"] for i in range(4)]
+    for t, m in zip(tmaps, maps):
+        np.testing.assert_array_equal(t.numpy(), m)
     assert (np.bincount((maps[0] & 7).ravel(), minlength=5) > 0).all()
     assert (np.bincount((maps[1] & 7).ravel(), minlength=5) > 0).all()
     y, u, v = _planes(mbh, mbw, seed=mbw)
-    gold = [y.copy(), u.copy(), v.copy()]
-    jdb.apply_maps_np(*gold, *maps)
-    # deblock_apply_wavefront on these planes and maps (committed)
+    # the numpy golden model apply_maps_np and deblock_apply_wavefront on
+    # these planes and maps (committed)
+    gold = [units[f"db_gold_{mbh}x{mbw}_{p}"] for p in "yuv"]
     wave = [refs[f"dbw_{mbh}x{mbw}_{p}"] for p in "yuv"]
     got = tkd.deblock_apply(*(torch.from_numpy(a) for a in (y, u, v)),
                             *tmaps)

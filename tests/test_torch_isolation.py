@@ -85,32 +85,53 @@ def test_encoder_and_state_without_cuda_raise(no_cuda):
         state_from_numpy(z, z[:8, :8], z[:8, :8], frame_idx=1)
 
 
-@pytest.mark.parametrize("extra", ["", "--ref 2", "--trellis 1"])
+@pytest.mark.parametrize("extra", ["--threads 2", "--psnr", "--ssim"])
 def test_out_of_slice_options_raise(extra):
-    """Options the port cannot encode raise: multi-ref and trellis, on
-    the per-frame and the batched path (the default session asks for
-    both)."""
+    """Options the port cannot encode raise: --threads > 1 (the multi-
+    device path) and --psnr/--ssim, on the batched path, which the
+    default session takes."""
     from x264vfw_tpu_torch.api import CompressSession
-    base = "" if extra == "" else "--preset ultrafast --me esa "
-    s = CompressSession(extra_cmdline=(base + extra).strip() or "--qp 26",
-                        device="cpu")
+    s = CompressSession(extra_cmdline=extra, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         s.begin(64, 48)
 
 
+@pytest.mark.parametrize("extra", ["", "--ref 2", "--trellis 1"])
+def test_multi_ref_and_trellis_now_run(extra):
+    """Refused before multi-reference P and trellis were ported: the
+    default session (x264's --preset medium: --ref 3, trellis) and --ref
+    2 or --trellis 1 on --preset ultrafast --me esa begin on the batched
+    path and encode a frame, which comes out of end()."""
+    from x264vfw_tpu_torch.api import CompressSession
+    base = "" if extra == "" else "--preset ultrafast --me esa "
+    s = CompressSession(extra_cmdline=(base + extra).strip(), device="cpu")
+    s.begin(32, 32)
+    au = s.compress((np.full((32, 32), 90, np.uint8),
+                     np.full((16, 16), 128, np.uint8),
+                     np.full((16, 16), 128, np.uint8)))
+    end = s.end()
+    assert (au or end["tail"]) and end["frames"] == 1
+    enc = s.encoder
+    assert s._pipe is not None
+    assert enc.nref == {"": 3, "--ref 2": 2, "--trellis 1": 1}[extra]
+    assert enc.cfg.trellis == (extra != "--ref 2")
+    assert enc.pps.num_ref_idx_l0_default_active_minus1 == enc.nref - 1
+
+
 def test_batched_pipeline_refuses_only_multi_ref():
-    """BatchPipeline itself takes every option but multi-ref."""
+    """BatchPipeline takes every option the encoder takes, several
+    references too (it refused them before the sliding DPB was ported)."""
     from x264vfw_tpu_torch.encode.pipeline import BatchPipeline
     from x264vfw_tpu_torch.encode.ref_encoder import EncoderConfig
     from x264vfw_tpu_torch.encode.torch_encoder import TorchEncoder
-    enc = TorchEncoder(EncoderConfig(width=64, height=48, bframes=3,
-                                     cabac=True, aq_strength=1.0,
-                                     dct8x8=True, i4x4=True, weightp=1,
-                                     scenecut=40), device="cpu")
-    BatchPipeline(enc, rc=None, mbtree=object())
-    enc.cfg.num_ref_frames = 2
-    with pytest.raises(NotImplementedError, match="multi-ref"):
-        BatchPipeline(enc, rc=None)
+    kw = dict(width=64, height=48, bframes=3, cabac=True, aq_strength=1.0,
+              dct8x8=True, i4x4=True, weightp=1, scenecut=40)
+    BatchPipeline(TorchEncoder(EncoderConfig(**kw), device="cpu"), rc=None,
+                  mbtree=object())
+    enc = TorchEncoder(EncoderConfig(**kw, num_ref_frames=2, trellis=True),
+                       device="cpu")
+    pipe = BatchPipeline(enc, rc=None)
+    assert pipe.enc.nref == 2 and enc.dpb == []
 
 
 @pytest.mark.parametrize("extra", ["--cabac", "--partitions i8x8",

@@ -5,8 +5,10 @@ x264vfw_tpu_torch.ops.kernels.memc.partition_refine_mc_plain against
 x264vfw_tpu.encode.inter_partition._refine_and_mc_xla (which
 tests/test_pallas_memc.py holds bit-equal to the Pallas kernel), the
 half-pel planes against encode/device._halfpel_planes, and the partition
-decision's lambda table against the JAX float32 expression.  Inputs come
-from numpy seeds.  Tolerance: none.  The CUDA kernel is held against the
+decision's lambda table against the JAX float32 expression (the golden
+model's outputs committed in tests/jax_refs/units.npz,
+tools/make_torch_jax_refs.py, hash-guarded).  Inputs come from numpy
+seeds.  Tolerance: none.  The CUDA kernel is held against the
 plain version on the card (the `cuda` test below and chip_smoke.py).
 """
 
@@ -19,6 +21,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_jax_refs
 from x264vfw_tpu.encode import device as jdev
 from x264vfw_tpu.encode import inter_partition as jip
 from x264vfw_tpu_torch.encode import device as tdev
@@ -27,10 +30,6 @@ from x264vfw_tpu_torch.ops.kernels import memc as tmemc
 
 SHAPES = [(48, 64, 4), (64, 80, 8)]
 LAYOUTS = [0, 1, 2, 3, "random"]
-
-# the JAX golden model, compiled once per shape and sub_lv
-_jax_refine = jax.jit(jip._refine_and_mc_xla, static_argnums=(4, 5))
-
 
 def _case(H, W, R, layout, seed):
     rng = np.random.default_rng(seed)
@@ -56,31 +55,61 @@ def _port(src, refp, mv8i, part, R, sub_lv):
     return mv8.numpy(), pred.numpy()
 
 
-def test_halfpel_planes_match_jax():
-    rng = np.random.default_rng(3)
-    a = rng.integers(0, 256, (40, 56)).astype(np.int32)
-    want = jdev._halfpel_planes(jnp.asarray(a))
-    got = tdev._halfpel_planes(torch.from_numpy(a))
-    for w, g in zip(want, got):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+def _halfpel_case():
+    return np.random.default_rng(3).integers(0, 256, (40, 56)).astype(
+        np.int32)
+
+
+def jax_units() -> dict:
+    """The JAX golden model's outputs for the half-pel plane and
+    refinement tests (digests of the refinement's), committed in
+    tests/jax_refs/units.npz (tools/make_torch_jax_refs.py units)."""
+    refine = jax.jit(jip._refine_and_mc_xla, static_argnums=(4, 5))
+    out = {f"mc_half_{i}": np.asarray(a) for i, a in enumerate(
+        jdev._halfpel_planes(jnp.asarray(_halfpel_case())))}
+
+    def run(src, refp, mv8i, part, R, sub_lv):
+        return refine(jnp.asarray(src, jnp.int16),
+                      jnp.asarray(refp, jnp.int16), jnp.asarray(mv8i),
+                      jnp.asarray(part), R, sub_lv)
+
+    for H, W, R in SHAPES:
+        for layout in LAYOUTS:
+            for sub_lv in (1, 2):
+                case = _case(H, W, R, layout, seed=H + R + sub_lv)
+                for name, a in zip(("mv", "pred"), run(*case, R, sub_lv)):
+                    out[f"mc_ref_{H}x{W}_{R}_{layout}_{sub_lv}_{name}"] = \
+                        torch_jax_refs.digest(a)
+        out[f"mc_lv0_{H}x{W}_{R}"] = np.asarray(
+            run(*_case(H, W, R, "random", seed=R), R, 0)[1])
+    return out
+
+
+@pytest.fixture(scope="module")
+def units():
+    return torch_jax_refs.load("units")
+
+
+def test_halfpel_planes_match_jax(units):
+    got = tdev._halfpel_planes(torch.from_numpy(_halfpel_case()))
+    for i, g in enumerate(got):
+        np.testing.assert_array_equal(g.numpy(), units[f"mc_half_{i}"])
 
 
 @pytest.mark.parametrize("sub_lv", [1, 2])
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("H,W,R", SHAPES)
-def test_refine_plain_matches_jax(H, W, R, layout, sub_lv):
+def test_refine_plain_matches_jax(units, H, W, R, layout, sub_lv):
     src, refp, mv8i, part = _case(H, W, R, layout, seed=H + R + sub_lv)
-    want_mv, want_pred = _jax_refine(
-        jnp.asarray(src, jnp.int16), jnp.asarray(refp, jnp.int16),
-        jnp.asarray(mv8i), jnp.asarray(part), R, sub_lv)
     mv8, pred = _port(src, refp, mv8i, part, R, sub_lv)
-    np.testing.assert_array_equal(mv8, np.asarray(want_mv))
-    np.testing.assert_array_equal(pred, np.asarray(want_pred))
+    key = f"mc_ref_{H}x{W}_{R}_{layout}_{sub_lv}"
+    assert torch_jax_refs.digest(mv8) == str(units[f"{key}_mv"])
+    assert torch_jax_refs.digest(pred) == str(units[f"{key}_pred"])
     assert len(np.unique(mv8 - 4 * mv8i)) > 1     # sub-pel deltas won
 
 
 @pytest.mark.parametrize("H,W,R", SHAPES)
-def test_refine_sub_lv0_is_integer_mc(H, W, R):
+def test_refine_sub_lv0_is_integer_mc(units, H, W, R):
     """sub_lv 0 is plain integer-pel MC at each block's vector.  The JAX
     golden model's sub_lv 0 branch reads one column to the left (its
     single alignment variant is the o = -1 one); ROADMAP.md section C
@@ -94,10 +123,7 @@ def test_refine_sub_lv0_is_integer_mc(H, W, R):
     xs = np.arange(W)[None, :] + np.repeat(np.repeat(mv8i[..., 0], 8, 0),
                                            8, 1)
     np.testing.assert_array_equal(pred, refp[P + ys, P + xs])
-    _, jax_pred = _jax_refine(
-        jnp.asarray(src, jnp.int16), jnp.asarray(refp, jnp.int16),
-        jnp.asarray(mv8i), jnp.asarray(part), R, 0)
-    np.testing.assert_array_equal(np.asarray(jax_pred),
+    np.testing.assert_array_equal(units[f"mc_lv0_{H}x{W}_{R}"],
                                   refp[P + ys, P + xs - 1])
 
 

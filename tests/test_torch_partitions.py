@@ -12,9 +12,9 @@ slice as a whole: the CompressSession bytes for
 same reference through convert.state_from_numpy; and the same session
 without --me esa, whose ':hier' suffix the partition search ignores, so
 that it gives slice 2's bytes.  The JAX package's outputs for these are
-committed in tests/jax_refs/slice2.npz
-(tools/make_torch_jax_refs.py; its hash guard is in
-test_torch_session.py).  Inputs come from numpy seeds.  Tolerance: none.
+committed in tests/jax_refs/slice2.npz, those of the pieces in
+calls.npz and units.npz (tools/make_torch_jax_refs.py; its hash guard
+is in test_torch_session.py).  Inputs come from numpy seeds.  Tolerance: none.
 """
 
 import dataclasses
@@ -113,56 +113,99 @@ def test_decide_from_minima_matches_jax(qp):
     assert len(np.unique(part.numpy())) > 1
 
 
-def test_chroma_mc_8x8_matches_jax():
+def _chroma_case():
     H, W, R = 48, 64, 8
     rng = np.random.default_rng(4)
     lim = 4 * R + 2
     mv8 = rng.integers(-lim, lim + 1, (H // 8, W // 8, 2)).astype(np.int32)
     ru, rv = (rng.integers(0, 256, (H // 2, W // 2)).astype(np.int32)
               for _ in range(2))
-    want = jip._chroma_mc_8x8(jnp.asarray(mv8), jnp.asarray(ru),
-                              jnp.asarray(rv), R, H, W)
+    return (H, W, R), mv8, ru, rv
+
+
+def test_chroma_mc_8x8_matches_jax(units):
+    _, mv8, ru, rv = _chroma_case()
     got = tdev._chroma_mc(*(torch.from_numpy(a) for a in (mv8, ru, rv)), 4)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for i, g in enumerate(got):
+        np.testing.assert_array_equal(g.numpy(), units[f"pt_chroma_{i}"])
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_partition_mvds_matches_jax(seed):
+def _mvds_case(seed):
     rng = np.random.default_rng(seed)
     mbh, mbw = 4, 5
     mv8 = rng.integers(-9, 10, (2 * mbh, 2 * mbw, 2)).astype(np.int32)
     mv8[rng.random((2 * mbh, 2 * mbw)) < 0.3] = 0      # zero vectors: P_Skip
     part = rng.integers(0, 4, (mbh, mbw)).astype(np.int32)
-    want = _jax_mvds(jnp.asarray(mv8), jnp.asarray(part))
+    return mv8, part
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_partition_mvds_matches_jax(units, seed):
+    mv8, part = _mvds_case(seed)
     got = tip.partition_mvds(torch.from_numpy(mv8), torch.from_numpy(part))
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for i, g in enumerate(got):
+        np.testing.assert_array_equal(g.numpy(), units[f"pt_mvds{seed}_{i}"])
 
 
-def test_partition_search_and_mc_matches_jax():
-    """Quarter pel (half pel: test_torch_memc.py and the decode test)."""
-    H, W, R, qp, subpel = 48, 64, 4, 20, 2
-    src, ref, srcc, refc = _frames(H, W, R, seed=subpel)
-    planes = (src, *srcc, ref, *refc)
-    want = jax.jit(jip.partition_search_and_mc, static_argnums=(6, 8))(
-        *(jnp.asarray(a) for a in planes), R, qp, subpel)
-    got = tip.partition_search_and_mc(*(torch.from_numpy(a) for a in planes),
-                                      R, qp, subpel=subpel)
-    for name, g, w in zip(("part", "mv8", "pred_y", "pred_u", "pred_v"),
-                          got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
-                                      err_msg=name)
+SEARCH_MC = (48, 64, 4, 20, 2)          # H, W, R, qp, subpel
+SEARCH_MC_OUT = ("part", "mv8", "pred_y", "pred_u", "pred_v")
 
 
-def test_quad_plain_matches_xla():
+def _quad_case():
     H, W, R = 48, 64, 4
     rng = np.random.default_rng(9)
     src = rng.integers(0, 256, (H, W)).astype(np.uint8)
     refp = np.pad(rng.integers(0, 256, (H, W)), R + 8,
                   mode="edge").astype(np.uint8)
-    want = jip._quad_sads(jnp.asarray(src, jnp.int16),
-                          jnp.asarray(refp, jnp.int16), R, "xla")
+    return (H, W, R), src, refp
+
+
+def jax_units() -> dict:
+    """The JAX package's side of the chroma MC, mvds, search-and-MC and
+    quad-SAD tests, committed in tests/jax_refs/units.npz
+    (tools/make_torch_jax_refs.py units)."""
+    out = {}
+    (H, W, R), mv8, ru, rv = _chroma_case()
+    for i, a in enumerate(jip._chroma_mc_8x8(
+            jnp.asarray(mv8), jnp.asarray(ru), jnp.asarray(rv), R, H, W)):
+        out[f"pt_chroma_{i}"] = np.asarray(a)
+    for seed in (0, 1):
+        for i, a in enumerate(_jax_mvds(*(jnp.asarray(a)
+                                          for a in _mvds_case(seed)))):
+            out[f"pt_mvds{seed}_{i}"] = np.asarray(a)
+    H, W, R, qp, subpel = SEARCH_MC
+    src, ref, srcc, refc = _frames(H, W, R, seed=subpel)
+    for name, a in zip(SEARCH_MC_OUT, jax.jit(
+            jip.partition_search_and_mc, static_argnums=(6, 8))(
+            *(jnp.asarray(a) for a in (src, *srcc, ref, *refc)), R, qp,
+            subpel)):
+        out[f"pt_smc_{name}"] = np.asarray(a)
+    (H, W, R), src, refp = _quad_case()
+    out["pt_quad"] = np.asarray(jip._quad_sads(
+        jnp.asarray(src, jnp.int16), jnp.asarray(refp, jnp.int16), R, "xla"))
+    return out
+
+
+@pytest.fixture(scope="module")
+def units():
+    return torch_jax_refs.load("units")
+
+
+def test_partition_search_and_mc_matches_jax(units):
+    """Quarter pel (half pel: test_torch_memc.py and the decode test)."""
+    H, W, R, qp, subpel = SEARCH_MC
+    src, ref, srcc, refc = _frames(H, W, R, seed=subpel)
+    planes = (src, *srcc, ref, *refc)
+    got = tip.partition_search_and_mc(*(torch.from_numpy(a) for a in planes),
+                                      R, qp, subpel=subpel)
+    for name, g in zip(SEARCH_MC_OUT, got):
+        np.testing.assert_array_equal(g.numpy(), units[f"pt_smc_{name}"],
+                                      err_msg=name)
+
+
+def test_quad_plain_matches_xla(units):
+    (H, W, R), src, refp = _quad_case()
+    want = units["pt_quad"]
     s = torch.from_numpy(src)
     r = torch.from_numpy(refp[8:-8, 8:-8].copy())
     got = tsad.sad_search_quad(s, r, R)

@@ -2,7 +2,9 @@
 
 Same numpy-seeded inputs through x264vfw_tpu.ops.transform and
 x264vfw_tpu_torch.ops.transform; every comparison is integer equality
-(tolerance: none).
+(tolerance: none).  The quantisers' and DC paths' JAX outputs at every
+QP are committed as digests in tests/jax_refs/units.npz
+(tools/make_torch_jax_refs.py units, hash-guarded).
 """
 
 import numpy as np
@@ -10,6 +12,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_jax_refs
 from x264vfw_tpu.ops import transform as tj
 from x264vfw_tpu.ops import transform_np as tnp
 from x264vfw_tpu_torch.ops import tables
@@ -39,28 +42,64 @@ def test_unquantised_transforms(name, lo, hi):
           getattr(tj, name)(jnp.asarray(x)))
 
 
+def jax_units() -> dict:
+    """The JAX package's side of test_quant_dequant_all_qps and
+    test_dc_paths, as digests, committed in tests/jax_refs/units.npz
+    (tools/make_torch_jax_refs.py units).  Each dequantiser takes the
+    quantiser's output."""
+    dig = torch_jax_refs.digest
+    out = {}
+    w = jnp.asarray(_ints((64, 4, 4), -9180, 9180, seed=1))
+    for intra in (True, False):
+        for qp in range(52):
+            q = tj.quant4x4(w, qp, intra=intra)
+            out[f"tf_q{int(intra)}_{qp}"] = dig(q)
+            out[f"tf_dq{int(intra)}_{qp}"] = dig(tj.dequant4x4(q, qp))
+    for qp in QPS:
+        lv = tj.luma_dc_fwd_quant(jnp.asarray(
+            _ints((40, 4, 4), -4080, 4080, seed=qp)), qp)
+        out[f"tf_ldc_{qp}"] = dig(lv)
+        out[f"tf_ldq_{qp}"] = dig(tj.luma_dc_dequant(lv, qp))
+        c = jnp.asarray(_ints((40, 2, 2), -2040, 2040, seed=qp + 1))
+        for intra in (True, False):
+            cl = tj.chroma_dc_fwd_quant(c, qp, intra)
+            out[f"tf_cdc{int(intra)}_{qp}"] = dig(cl)
+            out[f"tf_cdq{int(intra)}_{qp}"] = dig(tj.chroma_dc_dequant(cl,
+                                                                       qp))
+    return out
+
+
+@pytest.fixture(scope="module")
+def refs():
+    return torch_jax_refs.load("units")
+
+
+def _dig_same(got: torch.Tensor, want) -> None:
+    assert got.dtype == torch.int32
+    assert torch_jax_refs.digest(got) == str(want)
+
+
 @pytest.mark.parametrize("intra", [True, False])
-def test_quant_dequant_all_qps(intra):
+def test_quant_dequant_all_qps(refs, intra):
     w = _ints((64, 4, 4), -9180, 9180, seed=1)
     for qp in range(52):
         q = tt.quant4x4(torch.from_numpy(w), qp, intra=intra)
-        _same(q, tj.quant4x4(jnp.asarray(w), qp, intra=intra))
-        _same(tt.dequant4x4(q, qp), tj.dequant4x4(jnp.asarray(q.numpy()), qp))
+        _dig_same(q, refs[f"tf_q{int(intra)}_{qp}"])
+        _dig_same(tt.dequant4x4(q, qp), refs[f"tf_dq{int(intra)}_{qp}"])
 
 
 @pytest.mark.parametrize("qp", QPS)
-def test_dc_paths(qp):
+def test_dc_paths(refs, qp):
     dc = _ints((40, 4, 4), -4080, 4080, seed=qp)
     lv = tt.luma_dc_fwd_quant(torch.from_numpy(dc), qp)
-    _same(lv, tj.luma_dc_fwd_quant(jnp.asarray(dc), qp))
-    _same(tt.luma_dc_dequant(lv, qp),
-          tj.luma_dc_dequant(jnp.asarray(lv.numpy()), qp))
+    _dig_same(lv, refs[f"tf_ldc_{qp}"])
+    _dig_same(tt.luma_dc_dequant(lv, qp), refs[f"tf_ldq_{qp}"])
     c = _ints((40, 2, 2), -2040, 2040, seed=qp + 1)
     for intra in (True, False):
         cl = tt.chroma_dc_fwd_quant(torch.from_numpy(c), qp, intra)
-        _same(cl, tj.chroma_dc_fwd_quant(jnp.asarray(c), qp, intra))
-        _same(tt.chroma_dc_dequant(cl, qp),
-              tj.chroma_dc_dequant(jnp.asarray(cl.numpy()), qp))
+        _dig_same(cl, refs[f"tf_cdc{int(intra)}_{qp}"])
+        _dig_same(tt.chroma_dc_dequant(cl, qp),
+                  refs[f"tf_cdq{int(intra)}_{qp}"])
 
 
 def test_zigzag_and_tables():

@@ -25,7 +25,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_DIR = os.path.join(ROOT, "tests", "jax_refs")
 NAMES = ("slice1", "slice2", "live", "l3", "l4", "core", "batched",
-         "calls")
+         "calls", "multiref", "units")
 SCRIPT = "tools/make_torch_jax_refs.py"
 
 
@@ -42,6 +42,13 @@ def source_hash() -> str:
             h.update(rel.replace(os.sep, "/").encode() + b"\0" + f.read()
                      + b"\0")
     return h.hexdigest()
+
+
+def digest(a) -> str:
+    """sha256 of an integer or boolean array's shape and values (as
+    int64): committed in place of a large output and compared exactly."""
+    a = np.ascontiguousarray(np.asarray(a), np.int64)
+    return hashlib.sha256(repr(a.shape).encode() + a.tobytes()).hexdigest()
 
 
 def path(name: str) -> str:

@@ -56,7 +56,34 @@ source hash no longer matches.  Each file holds:
     test_torch_partitions.py), cavlc_jax.encode_blocks
     (blocks_<maxc>_{vals,lens}, test_torch_cavlc_pack.py) and build_maps
     with t8 and per-MB QPs (maps_<offA>_<offB>_<cqo>_<i>,
-    test_torch_aq_t8.py).
+    test_torch_aq_t8.py);
+  * units.npz (the unit tests of test_torch_{aq_t8,transform,deblock,
+    partitions,memc}.py, so that they call no JAX): each file's
+    jax_units(), prefixed aq_, tf_, db_, pt_ and mc_; large outputs as
+    torch_jax_refs.digest() strings;
+  * multiref.npz (test_torch_multiref.py, test_torch_trellis.py): per
+    line of the multi-reference sessions every compress() return, the
+    tail and frames_info().delay (<line>_out_<i>, <line>_tail,
+    <line>_delay); the converted-state case of a per-frame encoder with a
+    full DPB (cs_*: config fields, DPB, counters, weight-analysis and
+    scene-cut state, then the access units and reconstructions of the
+    frames after it); _multi_ref_search_and_mc (ms_<R>_<search>_<subpel>
+    _<tie>_<output>); p16_mv_pred with reference maps (mvp_<mbh>x<mbw>_
+    {pmv,skip}); the P core over a stacked DPB (core_<R>_out_<key>), its
+    slot rows, bit count and packed bytes at nref R (core_<R>_fin_*),
+    colocated_mv (core_<R>_col), the maps apply_loop_filter builds
+    (core_<R>_map_<i>) and its planes (core_<R>_lf_<plane>); and the
+    trellis cases: _trellis_adjust at one QP (tr_scalar_<intra>, one row
+    per QP 0..51) and per MB (tr_mb_<intra>), the thresholds (tr_lam,
+    tr_lam4, tr_lam15) and the residual pipeline with trellis
+    (tr_pipe_<t8><decimate>_*).
+
+    JAX_PLATFORMS=cpu python tools/make_torch_jax_refs.py multiref
+
+takes about half an hour (XLA:CPU compiles every program of the six
+sessions); tools/make_torch_jax_refs.py multiref:<part> writes only the
+part (units, converted or one line's session) into the file, keeping
+the rest.
 """
 
 from __future__ import annotations
@@ -84,9 +111,13 @@ import test_torch_hier as th  # noqa: E402
 import test_torch_sad as tsd  # noqa: E402
 import test_torch_intra4x4 as ti  # noqa: E402
 import test_torch_live_presets as tl  # noqa: E402
+import test_torch_memc as tmc  # noqa: E402
+import test_torch_multiref as tmr  # noqa: E402
 import test_torch_partitions as tp  # noqa: E402
 import test_torch_pipeline as tpl  # noqa: E402
 import test_torch_session as ts  # noqa: E402
+import test_torch_transform as ttf  # noqa: E402
+import test_torch_trellis as ttr  # noqa: E402
 import torch_jax_refs as refs  # noqa: E402
 from x264vfw_tpu.api import CompressSession  # noqa: E402
 from x264vfw_tpu.bitstream import cavlc_jax  # noqa: E402
@@ -94,6 +125,7 @@ from x264vfw_tpu.encode import device as jdev  # noqa: E402
 from x264vfw_tpu.encode import device_finalize as jfin  # noqa: E402
 from x264vfw_tpu.encode.device_pack import pack_slots as jpack  # noqa: E402
 from x264vfw_tpu.ops import deblock as jdb  # noqa: E402
+from x264vfw_tpu.ops import transform as jtj  # noqa: E402
 from x264vfw_tpu.encode.tpu_encoder import TpuEncoder  # noqa: E402
 
 
@@ -369,14 +401,197 @@ def calls_refs(digest) -> dict:
     return out
 
 
+def multiref_session(name: str) -> dict:
+    """One line of test_torch_multiref.LINES over its clip."""
+    out = {}
+    s = CompressSession(extra_cmdline=tmr.LINES[name])
+    s.begin(tmr.W, tmr.H)
+    put_aus(out, f"{name}_out", [s.compress(f) for f in tmr.multiref_clip()])
+    out[f"{name}_tail"] = np.frombuffer(s.end()["tail"], np.uint8)
+    out[f"{name}_delay"] = s.frames_info().delay
+    return out
+
+
+def multiref_converted() -> dict:
+    """The per-frame encoder of tmr.CONVERT_LINE after CONVERT_AT frames,
+    with a full DPB, then the frames after it at CONVERT_QP."""
+    out = {}
+    s = CompressSession(extra_cmdline=tmr.LINES[tmr.CONVERT_LINE])
+    s.begin(tmr.W, tmr.H)
+    clip = tmr.multiref_clip()
+    for f in clip[:tmr.CONVERT_AT]:
+        s.compress(f)
+    enc = s.encoder
+    assert len(enc.dpb) == 3 and enc._wp_prev is not None
+    for k, val in dataclasses.asdict(enc.cfg).items():
+        out[f"cs_cfg_{k}"] = np.asarray(val)
+    for i, r in enumerate(enc.dpb):
+        for k, p in zip("yuv", r):
+            out[f"cs_dpb{i}_{k}"] = np.asarray(p).astype(np.uint8)
+    assert all((np.asarray(a) == np.asarray(b)).all()
+               for a, b in zip(enc.dpb[0], enc.ref))
+    out.update(cs_frame_idx=enc.frame_idx, cs_frame_num=enc.frame_num,
+               cs_idr_id=enc.idr_id, cs_poc=enc.poc,
+               cs_last_idr=enc._last_idr_d, cs_wp_prev=enc._wp_prev,
+               cs_scenecut_prev=enc._scenecut.prev,
+               cs_scenecut_ema=enc._scenecut._ema)
+    qp = tmr.CONVERT_QP
+    for i, f in enumerate(clip[tmr.CONVERT_AT:tmr.CONVERT_AT
+                               + tmr.CONVERT_N]):
+        (au, _, key), = enc.push_frame(*f, qp_i=qp, qp_p=qp)
+        assert not key
+        out[f"cs_au_{i}"] = np.frombuffer(au, np.uint8)
+        for k, p in zip("yuv", enc.ref):
+            out[f"cs_rec{i}_{k}"] = np.asarray(p).astype(np.uint8)
+    return out
+
+
+def multiref_units() -> dict:
+    """The module-level cases of test_torch_multiref.py and
+    test_torch_trellis.py."""
+    out = {}
+    search = jax.jit(jdev._multi_ref_search_and_mc,
+                     static_argnames=("rng", "subpel", "me_backend"))
+    for R, me, subpel, tie in tmr.SEARCH_CASES:
+        src, rf = tmr.search_case(R, tie)
+        res = search(*(jnp.asarray(p) for p in src),
+                     tuple(tuple(jnp.asarray(p) for p in r) for r in rf),
+                     rng=tmr.SEARCH_RNG, subpel=subpel, me_backend=me)
+        key = tmr.search_key(R, me, subpel, tie)
+        for name, a in zip(("mv_q", "ref_idx", "pred_y", "pred_u", "pred_v"),
+                           res):
+            out[f"{key}_{name}"] = np.asarray(a)
+    for mbh, mbw in tmr.MVP_SHAPES:
+        mv, ref = tmr.mvp_case(mbh, mbw)
+        pmv, skip = jfin.p16_mv_pred(jnp.asarray(mv), jnp.asarray(ref))
+        out[f"mvp_{mbh}x{mbw}_pmv"] = np.asarray(pmv)
+        out[f"mvp_{mbh}x{mbw}_skip"] = np.asarray(skip)
+
+    pcore = jax.jit(jdev.encode_p_frame_core, static_argnames=(
+        "rng", "subpel", "me_backend", "aq_strength", "qpc_offset",
+        "decimate", "trellis", "partitions", "dct8x8"))
+    maps_seen = []
+    keep_maps = jdb.build_maps
+
+    def spy_maps(*a, **k):
+        res = keep_maps(*a, **k)
+        maps_seen.append(res)
+        return res
+
+    n = (tmr.H // 16) * (tmr.W // 16)
+    for R, wp in tmr.CORE_CASES:
+        src, rf = tmr.search_case(R, seed=60)
+        stack = [jnp.asarray(np.stack([r[p] for r in rf])) for p in range(3)]
+        res = pcore(*(jnp.asarray(p) for p in src), *stack, tmr.CORE_QP,
+                    tmr.CORE_QP,
+                    wp=None if wp is None else tuple(jnp.int32(x)
+                                                     for x in wp),
+                    **tmr.CORE_KW)
+        key = tmr.core_key(R)
+        for k, a in res.items():
+            out[f"{key}_out_{k}"] = np.asarray(a)
+        vals, lens = jfin._finalize_p_core(
+            res, jnp.asarray(tmr.HDR_VALS, jnp.uint32),
+            jnp.asarray(tmr.HDR_LENS, jnp.int32), tmr.H // 16, tmr.W // 16,
+            nref=R, t8_mode=True)
+        out[f"{key}_fin_vals"] = np.asarray(vals).astype(np.int64)
+        out[f"{key}_fin_lens"] = np.asarray(lens)
+        data, bits = jpack(vals, lens,
+                           (int(np.asarray(lens).sum()) + 31) // 32 + 4)
+        out[f"{key}_fin_bits"] = int(bits)
+        out[f"{key}_fin_bytes"] = np.asarray(data)[:(int(bits) + 7) // 8]
+        out[f"{key}_col"] = np.asarray(jfin.colocated_mv(res, n))
+        jdb.build_maps, maps_seen[:] = spy_maps, []
+        try:
+            planes = jdev.apply_loop_filter(res, tmr.CORE_QP, tmr.H // 16,
+                                            tmr.W // 16, False)
+        finally:
+            jdb.build_maps = keep_maps
+        assert len(maps_seen) == 1
+        for i, m in enumerate(maps_seen[0]):
+            out[f"{key}_map_{i}"] = np.asarray(m)
+        for p, a in zip("yuv", planes):
+            out[f"{key}_lf_{p}"] = np.asarray(a)
+
+    # trellis: the thresholds, one QP per call and per MB
+    q = jnp.arange(52, dtype=jnp.int32)
+    lam = (512.0 * 0.9) * jnp.exp2((q.astype(jnp.float32) - 12.0) / 3.0)
+    for i in range(52):
+        one = (512.0 * 0.9) * jnp.exp2(
+            (jnp.asarray(i, jnp.int32).astype(jnp.float32) - 12.0) / 3.0)
+        assert np.asarray(one).view(np.int32) == np.asarray(lam)[i].view(
+            np.int32), i
+    out["tr_lam"] = np.asarray(lam)
+    out["tr_lam4"] = np.asarray(lam * 4.0)
+    out["tr_lam15"] = np.asarray(lam * 1.5)
+    blocks = jnp.asarray(ttr.trellis_blocks())
+    coef = jtj.fdct4x4(blocks)
+    for intra in (False, True):
+        rows = []
+        for qp in range(52):
+            c = coef[:ttr.N_SCALAR]
+            rows.append(np.asarray(jdev._trellis_adjust(
+                c, jtj.quant4x4(c, qp, intra=intra), qp, intra)))
+        out[f"tr_scalar_{int(intra)}"] = np.stack(rows)
+        qpm = q[:, None]
+        out[f"tr_mb_{int(intra)}"] = np.asarray(jdev._trellis_adjust(
+            coef, jtj.quant4x4(coef, qpm, intra=intra), qpm, intra))
+    src, pred, qpp = (jnp.asarray(a) for a in ttr.pipeline_case())
+    for t8, decimate in ttr.PIPE_CASES:
+        levels, res_, flag = jdev._luma_residual_pipeline(
+            src, pred, qpp, intra=False, decimate=decimate, trellis=True,
+            t8=t8)
+        key = f"tr_pipe_{int(t8)}{int(decimate)}"
+        out[f"{key}_levels"] = np.asarray(levels)
+        out[f"{key}_res"] = np.asarray(res_)
+        if t8:
+            out[f"{key}_t8"] = np.asarray(flag)
+    return out
+
+
+def units_refs(digest) -> dict:
+    """The JAX side of the unit tests of test_torch_{aq_t8,transform,
+    deblock,partitions,memc}.py (each file's jax_units())."""
+    out = {"source_sha256": digest}
+    for mod in (tq, ttf, tdb, tp, tmc):
+        out.update(mod.jax_units())
+    return out
+
+
+MULTIREF_PARTS = {"units": multiref_units, "converted": multiref_converted,
+                  **{name: (lambda name=name: multiref_session(name))
+                     for name in tmr.LINES}}
+
+
+def multiref_refs(digest) -> dict:
+    out = {"source_sha256": digest}
+    for make in MULTIREF_PARTS.values():
+        out.update(make())
+    return out
+
+
 MAKERS = {"live": live_refs, "l3": l3_refs, "l4": l4_refs,
-          "core": core_refs, "batched": batched_refs, "calls": calls_refs}
+          "core": core_refs, "batched": batched_refs, "calls": calls_refs,
+          "multiref": multiref_refs, "units": units_refs}
 
 
 def main() -> int:
     digest = np.asarray(refs.source_hash())
     os.makedirs(refs.REF_DIR, exist_ok=True)
     only = sys.argv[1:]
+    parts = [a.split(":", 1)[1] for a in only if a.startswith("multiref:")]
+    if parts:
+        unknown = set(parts) - set(MULTIREF_PARTS)
+        if unknown or len(parts) != len(only):
+            raise SystemExit(f"unknown multiref parts: {sorted(unknown)}")
+        path = refs.path("multiref")
+        out = refs.load("multiref") if os.path.exists(path) else {}
+        out["source_sha256"] = digest
+        for part in parts:
+            out.update(MULTIREF_PARTS[part]())
+        np.savez_compressed(path, **out)
+        print(path, os.path.getsize(path), "bytes")
+        return 0
     unknown = set(only) - set(MAKERS)
     if unknown:
         raise SystemExit(f"unknown reference files: {sorted(unknown)}")

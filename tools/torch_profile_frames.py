@@ -2,7 +2,7 @@
 
     python3 tools/torch_profile_frames.py [--width 1920 --height 1080]
                                           [--parts | --l4 | --veryfast |
-                                           --batched]
+                                           --batched | --medium]
                                           [--out profile.jsonl]
 
 Encodes a textured clip moving by a known shift with the port's
@@ -38,6 +38,18 @@ the last 5 pushes and end() are profiled as one span: the flush's run of
 transcode of both windows; one JSON line as above for that span, with
 the types of the AUs it emits (window one's among them, encoded
 before the span).
+With --medium the line is CompressSession() with no options (x264's
+--preset medium: three references, trellis, CABAC, AQ, the 8x8
+transform, weighted P, --me hex, quarter pel), its frames encoded one by
+one through the session's encoder (TorchEncoder.encode_frame, without
+MB-tree's offsets or B frames): an I frame and three P frames fill the
+DPB, then one P frame over the DPB of 3 is profiled as above, and the
+next one is timed stage by stage, the motion steps once per reference
+(`hier_search_ref<r>`, `subpel_planes_ref<r>`, `subpel_refine_ref<r>`,
+`chroma_mc_ref<r>`), then `p_core` (the whole multi-reference core with
+trellis), `cavlc_slots` (with the ref_idx slots), the loop filter, the
+pack, the pull and the host `cabac` transcode; then the I frame's
+stages.
 --out also writes the lines to a file.
 """
 
@@ -63,6 +75,7 @@ L4 = ("--preset ultrafast --tune zerolatency --qp 26 --subme 7 "
       "--deblock 0:0 --keyint 2")
 VERYFAST = "--preset veryfast --tune zerolatency --crf 23 --keyint 2"
 BATCHED = "--preset veryfast --crf 23"
+MEDIUM = ""         # CompressSession() with no options: --preset medium
 
 
 def clip(w: int, h: int, frames: int, shift=(3, -2), seed: int = 1):
@@ -80,19 +93,21 @@ def clip(w: int, h: int, frames: int, shift=(3, -2), seed: int = 1):
     return out
 
 
-def hier_steps(enc, planes):
+def hier_steps(enc, planes, ref=None):
     """(name, call) of each step of the 16x16 P motion search and MC with
-    the hierarchical search, as encode/device._motion_search_and_mc runs
-    them; each call hands its result to the next through `r`."""
+    the hierarchical search against ref (default enc.ref), as
+    encode/device._motion_search_and_mc runs them; each call hands its
+    result to the next through `r`."""
     from x264vfw_tpu_torch.encode import device as dv
     R, sub_lv = enc.cfg.search_range, enc.cfg.subpel
+    ref = enc.ref if ref is None else ref
     r = {"src16": planes[0].to(torch.int16)}
 
     def search():
-        r["v"] = dv._hier_search(r["src16"], enc.ref[0].to(torch.int16), R)
+        r["v"] = dv._hier_search(r["src16"], ref[0].to(torch.int16), R)
 
     def subpel_planes():
-        r["planes"] = dv._subpel_planes(enc.ref[0], R + 8)
+        r["planes"] = dv._subpel_planes(ref[0], R + 8)
 
     def refine():
         tx, ty, _ = dv._subpel_refine(r["src16"], r["planes"], R + 8,
@@ -100,7 +115,7 @@ def hier_steps(enc, planes):
         r["mv"] = torch.stack([r["v"][0] * 4 + tx, r["v"][1] * 4 + ty], -1)
 
     def chroma():
-        dv._chroma_mc(r["mv"], enc.ref[1], enc.ref[2], 8)
+        dv._chroma_mc(r["mv"], ref[1], ref[2], 8)
 
     return [("hier_search", search), ("subpel_planes", subpel_planes),
             ("subpel_refine", refine), ("chroma_mc", chroma)]
@@ -136,8 +151,9 @@ def hier_profile_line(enc, frame, card, reps: int = 10) -> str:
 
 def stage_lines(enc, prev, cur, card) -> list[str]:
     """Host-clock ms of each stage of one P frame (cur predicted from the
-    reconstruction of prev) and of one I frame, with a device synchronise
-    after each stage: the same calls TorchEncoder.encode_frame makes."""
+    reconstruction of prev, and with --ref > 1 from the DPB prev enters)
+    and of one I frame, with a device synchronise after each stage: the
+    same calls TorchEncoder.encode_frame makes."""
     from x264vfw_tpu_torch.bitstream.mb_syntax import SLICE_I, SLICE_P
     from x264vfw_tpu_torch.bitstream.nal import NAL_SLICE, wrap_nal
     from x264vfw_tpu_torch.encode import device as dv
@@ -167,24 +183,28 @@ def stage_lines(enc, prev, cur, card) -> list[str]:
                                    NAL_SLICE)
         cfg = enc.cfg
         if ftype == "P":
-            if cfg.partitions:
+            nref = enc._cur_nref
+            refs = enc.stacked_dpb() if nref > 1 else enc.ref
+            if enc.partitions:
                 stage("motion_search_mc", lambda: ip.partition_search_and_mc(
                     *planes, *enc.ref, cfg.search_range, enc.qp,
                     cfg.subpel))
             elif cfg.me_backend.endswith(":hier"):
-                for name, fn in hier_steps(enc, planes):
-                    stage(name, fn)
+                for r, ref in enumerate(enc.dpb[:nref] if nref > 1
+                                        else [enc.ref]):
+                    for name, fn in hier_steps(enc, planes, ref):
+                        stage(f"{name}_ref{r}" if nref > 1 else name, fn)
             else:
                 stage("motion_search_mc", lambda: dv._motion_search_and_mc(
                     *planes, *enc.ref, cfg.search_range))
             o = stage("p_core", lambda: dv.encode_p_frame_core(
-                *planes, *enc.ref, enc.qp, enc.qpc, cfg.search_range,
-                cfg.subpel, cfg.me_backend, partitions=cfg.partitions,
+                *planes, *refs, enc.qp, enc.qpc, cfg.search_range,
+                cfg.subpel, cfg.me_backend, partitions=enc.partitions,
                 aq_strength=cfg.aq_strength,
                 qpc_offset=enc.pps.chroma_qp_index_offset, wp=enc._wp,
-                dct8x8=cfg.dct8x8))
+                dct8x8=cfg.dct8x8, trellis=cfg.trellis))
             v, ln = stage("cavlc_slots", lambda: df._finalize_p_core(
-                o, hv, hl, enc.mbh, enc.mbw, t8_mode=cfg.dct8x8))
+                o, hv, hl, enc.mbh, enc.mbw, t8_mode=cfg.dct8x8, nref=nref))
         else:
             o = stage("i_core", lambda: dv.encode_i_frame_core(
                 *planes, enc.qp, enc.qpc, cfg.i4x4))
@@ -205,7 +225,9 @@ def stage_lines(enc, prev, cur, card) -> list[str]:
                 enc._transcode(payload, hl, ftype), np.uint8))
         stage("nal_wrap", lambda: wrap_nal(3, NAL_SLICE, payload))
         out.append(json.dumps({"stages": ftype, "ms": ms,
-                               "parts": bool(cfg.partitions),
+                               "parts": bool(enc.partitions),
+                               "references": enc._cur_nref
+                               if ftype == "P" else 0,
                                "hier": cfg.me_backend.endswith(":hier"),
                                "payload_bytes": int(payload.size),
                                "card": card}))
@@ -257,6 +279,36 @@ def batched_line(w: int, h: int, card: str) -> str:
         "card": card, "size": [w, h]})
 
 
+def medium_lines(w: int, h: int, card: str) -> list[str]:
+    """The --medium lines (module doc)."""
+    from x264vfw_tpu_torch.api import CompressSession
+    frames = clip(w, h, 7)
+    s = CompressSession(extra_cmdline=MEDIUM)
+    s.begin(w, h)
+    enc = s.encoder
+    enc.encode_frame(*frames[0], force_idr=True)
+    for f in frames[1:4]:                   # the DPB fills: 1, 2, 3
+        enc.encode_frame(*f, force_idr=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        enc.encode_frame(*frames[4], force_idr=False)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t) * 1e3
+    dev_ms, launches, top = device_summary(prof)
+    lines = [json.dumps({
+        "frame": 4, "type": "P", "references": enc._cur_nref,
+        "wall_ms": wall_ms, "device_ms": dev_ms,
+        "busy_share": dev_ms / wall_ms, "kernel_launches": launches,
+        "top_device_ms": top, "cabac_ms": enc.transcode_ms, "card": card,
+        "size": [w, h], "medium": True})]
+    print(lines[0], flush=True)
+    lines += stage_lines(enc, frames[5], frames[6], card)
+    s.end()
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--width", type=int, default=1920)
@@ -272,6 +324,9 @@ def main() -> int:
     ap.add_argument("--batched", action="store_true",
                     help="x264's VOD line on the batched session: --preset "
                     "veryfast --crf 23 (B frames, MB-tree)")
+    ap.add_argument("--medium", action="store_true",
+                    help="CompressSession() with no options (x264's --preset "
+                    "medium): a P frame over three references")
     ap.add_argument("--out", help="also write the JSON lines to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -282,14 +337,17 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=10).stdout.strip()
-    if args.batched:
-        lines = [batched_line(args.width, args.height, card)]
-        print(lines[0], flush=True)
+    if args.batched or args.medium:
+        if args.batched:
+            lines = [batched_line(args.width, args.height, card)]
+            print(lines[0], flush=True)
+        else:
+            lines = medium_lines(args.width, args.height, card)
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                         exist_ok=True)
             with open(args.out, "w") as fh:
-                fh.write(lines[0] + "\n")
+                fh.write("\n".join(lines) + "\n")
         return 0
     frames = clip(args.width, args.height, 6,
                   shift=(9, -6) if args.l4 else (3, -2))

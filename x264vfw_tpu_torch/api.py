@@ -11,22 +11,24 @@ The session owns config resolution (presets/flags), the encoder, the
 muxer, pts/dts bookkeeping and error stickiness.  It runs on the CUDA
 device unless built with device="cpu".
 
-The port encodes with one reference: I16x16 and I_NxN (--partitions
-i4x4; i8x8 is taken and ignored, as in the JAX package), P16x16 or the
-8x8-grid P partitions (--partitions p8x8) found by the hierarchical
+The port encodes I16x16 and I_NxN (--partitions i4x4; i8x8 is taken and
+ignored, as in the JAX package), P16x16 from up to four references
+(--ref, clamped to 4 as in the JAX package) or, with one reference, the
+8x8-grid P partitions (--partitions p8x8), found by the hierarchical
 search of --me dia/hex/umh or the exhaustive one of --me esa/tesa and
 refined to half or quarter pel (--subme), non-reference B frames
-(--bframes) with spatial direct and B_Skip, the loop filter (--deblock),
-CABAC (a host transcode of the CAVLC slice), the 8x8 transform, AQ,
-weighted P prediction, scene cuts and MB-tree (--mbtree, --rc-lookahead):
-x264's --preset ultrafast, superfast and veryfast, with or without
---tune zerolatency.  A zero-latency session (no B frames, no MB-tree,
+(--bframes) with spatial direct and B_Skip and one reference per list,
+the loop filter (--deblock), CABAC (a host transcode of the CAVLC
+slice), the 8x8 transform, AQ, trellis (--trellis 1 and 2 alike),
+weighted P prediction, scene cuts and MB-tree (--mbtree,
+--rc-lookahead): x264's --preset ultrafast to slow, with or without
+--tune zerolatency, CompressSession() with no options (x264's --preset
+medium) among them.  A zero-latency session (no B frames, no MB-tree,
 --tune zerolatency) or one with --threads 1 encodes frame by frame; any
 other goes through the batched pipeline (encode/pipeline.py, windows of
-12 frames), as in the JAX package.  Options outside it (multi-ref,
-trellis, --threads > 1, --psnr/--ssim) raise NotImplementedError naming
-the ROADMAP queue; the session never encodes something other than what
-was asked.
+12 frames), as in the JAX package.  Options outside it (--threads > 1,
+--psnr/--ssim) raise NotImplementedError naming the ROADMAP queue; the
+session never encodes something other than what was asked.
 """
 
 from __future__ import annotations
@@ -80,10 +82,8 @@ def _p_partitions(p: EncoderParams) -> bool:
 
 
 def _out_of_slice(p: EncoderParams) -> list[str]:
-    """Requested options this port cannot encode yet (the batched
-    pipeline refuses more: encode/pipeline.BatchPipeline)."""
+    """Requested options this port cannot encode yet."""
     return [name for name, on in (
-        ("--ref > 1", p.ref > 1), ("--trellis", p.trellis > 0),
         ("--threads > 1 (multi-device)", p.threads > 1),
         ("--psnr/--ssim", bool(p.psnr or p.ssim)),
     ) if on]
@@ -132,6 +132,14 @@ class CompressSession:
         self.rc = RateController(p)
         qp = self.rc.qp_for_frame(True)
         bframes = min(p.bframes, 16)
+        if _p_partitions(p) and p.ref > 1:
+            self.log.warning(
+                "P partitions are searched per 8x8 block with a single "
+                f"reference; --ref {p.ref} keeps P16x16 per MB")
+        if bframes > 0 and p.ref > 1:
+            self.log.info(
+                f"--bframes {bframes} with --ref {p.ref}: P anchors use "
+                f"{p.ref} references, B frames one per list")
         if p.nal_hrd in ("vbr", "cbr") and not (p.vbv_maxrate > 0
                                                 and p.vbv_bufsize > 0):
             self.log.warning("--nal-hrd requires --vbv-maxrate and "

@@ -48,6 +48,9 @@ class EncoderState:
     pending: list = field(default_factory=list)
     last_mv: np.ndarray | None = None
     display_idx: int | None = None
+    # with --ref > 1: the decoded picture buffer, (y, u, v) int32 device
+    # planes per reference in ref_idx order (newest first; ref is dpb[0])
+    dpb: list = field(default_factory=list)
 
 
 def state_from_numpy(ref_y: np.ndarray, ref_u: np.ndarray, ref_v: np.ndarray,
@@ -55,11 +58,13 @@ def state_from_numpy(ref_y: np.ndarray, ref_u: np.ndarray, ref_v: np.ndarray,
                      idr_id: int = 1, last_idr: int = 0, poc_base: int = 0,
                      wp_prev=None, scenecut_prev=None, scenecut_ema=None,
                      pending=(), last_mv=None, display_idx=None,
-                     device=None) -> EncoderState:
+                     dpb=(), device=None) -> EncoderState:
     """Decoded picture buffer + frame counters from numpy arrays.
 
     ref_* are the reconstructed reference planes at MB-multiple size, as
-    the JAX encoder keeps them (TpuEncoder.ref).  frame_num defaults to
+    the JAX encoder keeps them (TpuEncoder.ref); with --ref > 1, dpb is
+    its DPB (TpuEncoder.dpb: (y, u, v) per reference, newest first, the
+    first equal to ref_*).  frame_num defaults to
     frame_idx - last_idr (frames since the IDR, no B frames).  wp_prev is
     the JAX encoder's _wp_prev (--weightp), scenecut_prev and
     scenecut_ema its scene-cut detector's prev and _ema (--scenecut).
@@ -67,15 +72,25 @@ def state_from_numpy(ref_y: np.ndarray, ref_u: np.ndarray, ref_v: np.ndarray,
     display index) each), last_mv its last_mv and display_idx its
     display_idx."""
     dev = resolve_device(device)
-    ref = tuple(torch.as_tensor(np.asarray(p, np.int32), device=dev)
-                for p in (ref_y, ref_u, ref_v))
-    H, W = ref[0].shape
-    if H % 16 or W % 16 or tuple(ref[1].shape) != (H // 2, W // 2) \
-            or ref[2].shape != ref[1].shape:
-        raise ValueError("reference planes must be 4:2:0 at MB-multiple size, "
-                         f"got {[tuple(p.shape) for p in ref]}")
+
+    def planes(y, u, v):
+        out = tuple(torch.as_tensor(np.asarray(p, np.int32), device=dev)
+                    for p in (y, u, v))
+        H, W = out[0].shape
+        if H % 16 or W % 16 or tuple(out[1].shape) != (H // 2, W // 2) \
+                or out[2].shape != out[1].shape:
+            raise ValueError("reference planes must be 4:2:0 at MB-multiple "
+                             f"size, got {[tuple(p.shape) for p in out]}")
+        return out
+
+    ref = planes(ref_y, ref_u, ref_v)
+    dpb = [planes(*r) for r in dpb]
+    if dpb and not all(torch.equal(a, b) for a, b in zip(dpb[0], ref)):
+        raise ValueError("dpb[0] must be the reference planes ref_*")
+    if any(r[0].shape != ref[0].shape for r in dpb):
+        raise ValueError("the DPB's planes differ in size from ref_*")
     return EncoderState(
-        ref=ref, frame_idx=frame_idx,
+        ref=ref, dpb=dpb, frame_idx=frame_idx,
         frame_num=frame_idx - last_idr if frame_num is None else frame_num,
         idr_id=idr_id, poc=poc, last_idr=last_idr, poc_base=poc_base,
         wp_prev=None if wp_prev is None else np.asarray(wp_prev, np.float32),

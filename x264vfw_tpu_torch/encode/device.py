@@ -6,11 +6,13 @@ I16x16 with chroma intra, and with --partitions i4x4 the I_NxN candidate
 (encode/intra4x4.py); P with one reference, either P16x16 (found by the
 hierarchical or the exhaustive search, then optionally refined to half
 or quarter pel) or the 8x8-grid partitions with half/quarter-pel
-refinement (encode/inter_partition.py), with per-MB variance AQ, MB-tree
-QP offsets, the per-MB 4x4-vs-8x8 transform decision and explicit
-weighted prediction; non-reference B with one reference per list (L0,
-L1 and Bi 16x16, spatial direct and B_Skip); and the in-loop deblock of
-the reconstruction.  Every function is batched
+refinement (encode/inter_partition.py), or P16x16 over a DPB of up to
+four references (--ref, _multi_ref_search_and_mc), with per-MB variance
+AQ, MB-tree QP offsets, the per-MB 4x4-vs-8x8 transform decision,
+explicit weighted prediction and the trellis-lite level refinement
+(--trellis, _trellis_adjust); non-reference B with one reference per
+list (L0, L1 and Bi 16x16, spatial direct and B_Skip); and the in-loop
+deblock of the reconstruction.  Every function is batched
 over macroblocks; sample arithmetic is int32 (int16 where the JAX code
 keeps pixel data in int16, with the same values).  The outputs are the
 same syntax tensors (levels in zigzag + block coding order, CBPs, MVs,
@@ -30,7 +32,9 @@ import torch
 
 from ..bitstream import cavlc_dev as cd
 from ..ops import transform as tj
+from ..ops.kernels.sad import argmin_first as _argmin_first
 from ..ops.kernels.sad import sad16_argmin
+from ..ops.kernels.sad import window_sads as _window_sads
 from ..ops.tables import ZIGZAG_4x4
 
 # luma 4x4 block coding order <-> raster within MB
@@ -222,44 +226,6 @@ def _split_me_method(me_backend: str) -> tuple[str, bool]:
     return backend, hier
 
 
-def _argmin_first(cost: torch.Tensor):
-    """(N, ...) integer costs -> (index of the first minimum over dim 0,
-    the minimum), from one int64 key cost * N + index: the tie-break of
-    jnp.argmin, whatever order the device reduces in."""
-    N = cost.shape[0]
-    idx = torch.arange(N, device=cost.device).reshape(
-        N, *([1] * (cost.dim() - 1)))
-    key = (cost.to(torch.int64) * N + idx).amin(dim=0)
-    return key % N, key // N
-
-
-# the most elements of shifted windows one _window_sads step forms (the
-# rest of the offsets wait for the next step): 128 MB of int16
-_WINDOW_ELEMS = 1 << 26
-
-
-def _window_sads(src: torch.Tensor, plane: torch.Tensor, ky: int, kx: int,
-                 bh: int, bw: int) -> torch.Tensor:
-    """SAD of every bh x bw block of src (B, R, C) against plane
-    (B, R + ky - 1, C + kx - 1) at every offset (oy, ox) in
-    [0, ky) x [0, kx): (ky * kx, B, R // bh, C // bw) int32, offsets in
-    row-major (oy, ox) order.  The shifted windows are strided views of
-    plane, taken a few offset rows at a time."""
-    plane = plane.contiguous()
-    B, R, C = src.shape
-    sb, sr, sc = plane.stride()
-    step = max(1, _WINDOW_ELEMS // (kx * src.numel()))
-    out = []
-    for oy in range(0, ky, step):
-        n = min(step, ky - oy)
-        win = plane.as_strided((n, kx, B, R, C), (sr, sc, sb, sr, sc),
-                               plane.storage_offset() + oy * sr)
-        d = (src - win).abs_()
-        out.append(d.reshape(n * kx, B, R // bh, bh, C // bw, bw)
-                   .sum(dim=(3, 5), dtype=torch.int32))
-    return torch.cat(out)
-
-
 def _hier_search(src16: torch.Tensor, ref16: torch.Tensor, rng: int):
     """Hierarchical integer-pel search (x264vfw_tpu/encode/device.py:
     253-343), int16 planes in, (dxb, dyb) (mbh, mbw) int64 out.
@@ -433,6 +399,46 @@ def _motion_search_and_mc(src_y, src_u, src_v, ref_y, ref_u, ref_v,
     return (mv_q, pred_y, *_chroma_mc(mv_q, ref_u, ref_v, 8))
 
 
+def _ref_bits(r: int, R: int) -> int:
+    """The multi-reference decision's cost of signalling ref_idx r among R
+    references: te(v) is one bit at R = 2, else ue(v), 2 * floor(log2(r +
+    1)) + 1 bits (1 at r = 0)."""
+    return 1 if R == 2 or r == 0 else 2 * ((r + 1).bit_length() - 1) + 1
+
+
+def _multi_ref_search_and_mc(src_y, src_u, src_v, refs, rng: int,
+                             subpel: int = 0, me_backend: str = "auto"):
+    """P16x16 over a DPB (x264's --ref): the one-reference search and MC
+    (_motion_search_and_mc) against every reference, then per MB the
+    reference of least 4 * SAD16 of its prediction + (|mv_x| + |mv_y|) >> 2
+    + 8 * _ref_bits, ties to the first (newest) reference.
+
+    refs: (y, u, v) planes per reference in ref_idx order, newest first.
+    Returns (mv_q (mbh, mbw, 2), ref_idx (mbh, mbw) int32, pred_y, pred_u,
+    pred_v)."""
+    H, W = src_y.shape
+    mbh, mbw = H // 16, W // 16
+    R = len(refs)
+    cands = [_motion_search_and_mc(src_y, src_u, src_v, *ref, rng,
+                                   subpel=subpel, me_backend=me_backend)
+             for ref in refs]
+    costs = torch.stack([
+        (src_y - py).abs().reshape(mbh, 16, mbw, 16)
+        .sum(dim=(1, 3), dtype=torch.int32) * 4
+        + (mv_q.abs().sum(dim=-1) >> 2) + 8 * _ref_bits(r, R)
+        for r, (mv_q, py, _, _) in enumerate(cands)])
+    sel, _ = _argmin_first(costs)
+    sel = sel.to(torch.int32)
+    sel_y, sel_c = _per_pixel(sel, 16), _per_pixel(sel, 8)
+    mv_q, py, pu, pv = cands[0]
+    for r in range(1, R):
+        mv_q = torch.where((sel == r)[..., None], cands[r][0], mv_q)
+        py = torch.where(sel_y == r, cands[r][1], py)
+        pu = torch.where(sel_c == r, cands[r][2], pu)
+        pv = torch.where(sel_c == r, cands[r][3], pv)
+    return mv_q, sel, py, pu, pv
+
+
 def _chroma_mc(mv_q, ref_u, ref_v, bs: int):
     """Chroma MC (§8.4.2.2.2) of blocks of bs x bs chroma samples, each at
     its own quarter-pel luma vector mv_q (rows, cols, 2) [x, y]: integer
@@ -491,13 +497,78 @@ def _lam2_table() -> np.ndarray:
 LAM2 = _lam2_table()
 
 
-def _luma_residual_pipeline(src_mbs, pred_mbs, qp, intra: bool,
-                            decimate: bool = False, t8: bool = False):
-    """fdct + quant + zigzag and the decoder-exact recon residual.
+# the trellis decision's lambda for qp 0..51, lam = (512 * 0.9) *
+# 2^((qp - 12) / 3) in float32 as the JAX package computes it on XLA:CPU,
+# as bit patterns: its exp2 is not numpy's (they differ by up to 7 ulps
+# at some QPs), and no device's exp2 may move a threshold
+# (test_torch_trellis.py holds the table to the JAX package's)
+_TRELLIS_LAM_BITS = np.asarray([
+    0x41e66666, 0x42112495, 0x4236de5c, 0x42666666, 0x42912495, 0x42b6de5c,
+    0x42e66666, 0x43112495, 0x4336de5c, 0x43666666, 0x43912495, 0x43b6de5c,
+    0x43e66666, 0x44112495, 0x4436de5c, 0x44666666, 0x44912495, 0x44b6de5c,
+    0x44e66666, 0x45112495, 0x4536de5c, 0x45666666, 0x45912495, 0x45b6de5c,
+    0x45e66666, 0x46112495, 0x4636de5c, 0x46666666, 0x46912495, 0x46b6de5c,
+    0x46e66666, 0x47112495, 0x4736de5c, 0x47666666, 0x47912495, 0x47b6de5c,
+    0x47e66666, 0x48112495, 0x4836de5c, 0x48666666, 0x48912495, 0x48b6de5c,
+    0x48e66666, 0x49112495, 0x4936de5c, 0x49666666, 0x49912495, 0x49b6de62,
+    0x49e66666, 0x4a112491, 0x4a36de5d, 0x4a66666d,
+], dtype=np.uint32)
 
-    qp: int, or (n, 1) per-MB QPs.  decimate (inter only): zero a whole
-    MB's luma residual when its summed decimate score is < 6 (x264's
-    default dct-decimate).  t8 (inter only): also evaluate the 8x8
+
+def _trellis_lam_tables() -> tuple:
+    """(lam, lam * 4, lam * 1.5) float32 for qp 0..51: the thresholds for
+    dropping a lone +-1 and for stepping a larger level down."""
+    lam = _TRELLIS_LAM_BITS.view(np.float32)
+    return lam, lam * np.float32(4.0), lam * np.float32(1.5)
+
+
+TRELLIS_LAM, TRELLIS_DROP, TRELLIS_STEP = _trellis_lam_tables()
+
+
+def _trellis_adjust(coef, q, qp, intra: bool):
+    """Trellis-lite (x264's --trellis): lower a level by one, or drop a
+    lone +-1, where the distortion it adds is below the rate it saves at
+    the QP's lambda.  The distortion is measured in the dequantised domain
+    (4 |w| against L * V << qp/6): e = 4 |w| - |L| V, dD = V (2 e + V);
+    a +-1 drops when dD < 4 lam, a larger level steps down when dD < 1.5
+    lam (float32 comparisons, dD converted from int32 as the JAX package
+    does).  Every value stays in int32: |w| <= 16 * 4 * 255, V <= 25 << 8,
+    so |dD| < 2^30.
+
+    coef: (n, 16, 4, 4) fdct4x4 output; q: its quant4x4 levels; qp: int or
+    (n, 1) per-MB QPs.  intra is unused, as in the JAX package.  Returns
+    the adjusted levels."""
+    del intra
+    qp = tj._qp(qp)
+    V = tj._per_qp("dequant", qp, coef.device) << tj._bc(qp // 6, qp)
+    absq = q.abs()
+    e = coef.abs() * 4 - absq * V
+    dD = (V * (2 * e + V)).to(torch.float32)
+    if isinstance(qp, torch.Tensor):
+        drop = tj._bc(torch.as_tensor(TRELLIS_DROP, device=coef.device)[
+            qp.long()], qp)
+        step = tj._bc(torch.as_tensor(TRELLIS_STEP, device=coef.device)[
+            qp.long()], qp)
+    else:
+        drop = torch.tensor(TRELLIS_DROP[qp], device=coef.device)
+        step = torch.tensor(TRELLIS_STEP[qp], device=coef.device)
+    newabs = torch.where((absq == 1) & (dD < drop), 0,
+                         torch.where((absq >= 2) & (dD < step), absq - 1,
+                                     absq))
+    return torch.sign(q) * newabs
+
+
+def _luma_residual_pipeline(src_mbs, pred_mbs, qp, intra: bool,
+                            decimate: bool = False, trellis: bool = False,
+                            t8: bool = False):
+    """fdct + quant (+ trellis) + zigzag and the decoder-exact recon
+    residual.
+
+    qp: int, or (n, 1) per-MB QPs.  trellis: _trellis_adjust the 4x4
+    levels after quant, before zigzag and decimation (the 8x8 candidate
+    is not refined, as in the JAX package).  decimate (inter only): zero
+    a whole MB's luma residual when its summed decimate score is < 6
+    (x264's default dct-decimate).  t8 (inter only): also evaluate the 8x8
     transform per MB (--8x8dct) and pick 4x4 or 8x8 by SSD + lambda *
     rate; the 8x8 levels come in CAVLC's interleaved-4x4 layout (§8.5.6:
     sub-block b of 8x8 block k sits in 4x4 slot 4k+b and carries 8x8
@@ -507,7 +578,10 @@ def _luma_residual_pipeline(src_mbs, pred_mbs, qp, intra: bool,
     bool or None)."""
     resid = src_mbs - pred_mbs
     blocks = mb_to_blocks(resid)
-    q = tj.quant4x4(tj.fdct4x4(blocks), qp, intra=intra)
+    coef = tj.fdct4x4(blocks)
+    q = tj.quant4x4(coef, qp, intra=intra)
+    if trellis:
+        q = _trellis_adjust(coef, q, qp, intra)
     levels = zigzag16(q)                            # (n, 16, 16)
     if decimate and not intra:
         keep = _decimate_score(levels).sum(dim=-1) >= 6      # (n,)
@@ -590,11 +664,14 @@ def encode_p_frame_core(src_y, src_u, src_v, ref_y, ref_u, ref_v,
                         me_backend: str = "auto", decimate: bool = True,
                         partitions: bool = False, aq_strength: float = 0.0,
                         qpc_offset: int = 0, wp=None, dct8x8: bool = False,
-                        qp_off=None):
-    """P-frame encode, one reference: P16x16, or with `partitions` the
+                        qp_off=None, trellis: bool = False):
+    """P-frame encode: P16x16 from one reference, or with `partitions` the
     16x16/16x8/8x16/8x8 decision on the 8x8 grid (adds 'part' (n,) and
-    'mv8' (2mbh, 2mbw, 2) to the outputs).  All planes int32 at MB-
-    multiple size.  Returns syntax tensors + recon planes (pre-deblock).
+    'mv8' (2mbh, 2mbw, 2) to the outputs), or, when the reference planes
+    are stacked (R, H, W) in ref_idx order, P16x16 over the R references
+    (_multi_ref_search_and_mc; adds 'ref_idx' (n,), and partitions are
+    not searched).  All planes int32 at MB-multiple size.  Returns syntax
+    tensors + recon planes (pre-deblock).
 
     aq_strength > 0: per-MB variance AQ (aq_qp_map); quant and dequant run
     with the per-MB QPs and the outputs carry 'qp_real' and 'qp_delta'
@@ -604,7 +681,8 @@ def encode_p_frame_core(src_y, src_u, src_v, ref_y, ref_u, ref_v,
     bookkeeping.  wp, optional (w, o) ints: explicit weighted prediction
     of luma (§8.4.2.3, denominator 6) applied to the interpolated
     prediction, in the decoder's order.  dct8x8: the per-MB 4x4-vs-8x8
-    transform decision (adds 't8' (n,) bool)."""
+    transform decision (adds 't8' (n,) bool).  trellis: _trellis_adjust
+    on the 4x4 levels."""
     H, W = src_y.shape
     mbh, mbw = H // 16, W // 16
     n = mbh * mbw
@@ -620,8 +698,14 @@ def encode_p_frame_core(src_y, src_u, src_v, ref_y, ref_u, ref_v,
         aq = True                       # per-MB QP bookkeeping below
     else:
         qp_l, qp_c, qp_cdc = qp, qpc, qpc
-    part = mv8 = None
-    if partitions:
+    part = mv8 = ref_sel = None
+    if ref_y.dim() == 3:
+        mv_q4, ref_sel, pred_y_pl, pred_u_pl, pred_v_pl = \
+            _multi_ref_search_and_mc(
+                src_y, src_u, src_v,
+                list(zip(ref_y, ref_u, ref_v)),
+                rng, subpel=subpel, me_backend=me_backend)
+    elif partitions:
         from .inter_partition import partition_search_and_mc
         part, mv8, pred_y_pl, pred_u_pl, pred_v_pl = partition_search_and_mc(
             src_y, src_u, src_v, ref_y, ref_u, ref_v, rng, qp, subpel)
@@ -638,7 +722,8 @@ def encode_p_frame_core(src_y, src_u, src_v, ref_y, ref_u, ref_v,
 
     pred = mbize(pred_y_pl)
     levels, recon_res, t8_flag = _luma_residual_pipeline(
-        src_mbs, pred, qp_l, intra=False, decimate=decimate, t8=dct8x8)
+        src_mbs, pred, qp_l, intra=False, decimate=decimate,
+        trellis=trellis, t8=dct8x8)
 
     # cbp luma per 8x8 quadrant (block coding order: blocks q*4..q*4+3)
     cbp_q = (levels != 0).any(dim=-1).reshape(n, 4, 4).any(dim=-1)
@@ -679,6 +764,8 @@ def encode_p_frame_core(src_y, src_u, src_v, ref_y, ref_u, ref_v,
         "recon_u": unmbize(rec_u, H // 2, W // 2, 8),
         "recon_v": unmbize(rec_v, H // 2, W // 2, 8),
     }
+    if ref_sel is not None:
+        out["ref_idx"] = ref_sel.reshape(n)
     if part is not None:
         out["part"] = part.reshape(n)
         out["mv8"] = mv8
@@ -752,7 +839,7 @@ def encode_b_frame_core(src_y, src_u, src_v, ref0_y, ref0_u, ref0_v,
                         ref1_y, ref1_u, ref1_v, mvcol, qp: int, qpc: int,
                         rng: int = 8, subpel: int = 0,
                         me_backend: str = "auto", decimate: bool = True,
-                        dct8x8: bool = False):
+                        dct8x8: bool = False, trellis: bool = False):
     """B-frame encode: independent L0 and L1 motion searches (each one
     _motion_search_and_mc), the per-MB {L0, L1, Bi} decision (default
     bi-prediction, (p0 + p1 + 1) >> 1, §8.4.2.3.1), then a second phase
@@ -771,7 +858,7 @@ def encode_b_frame_core(src_y, src_u, src_v, ref0_y, ref0_u, ref0_v,
     Returns 'mode' (n,) 0 = direct, 1 = L0, 2 = L1, 3 = Bi; 'mv0', 'mv1'
     (n, 2) quarter-pel; 'uses0', 'uses1' (n,) the final list usage as
     the decoder sees it; the residual syntax tensors; and 't8' with
-    dct8x8."""
+    dct8x8.  trellis: _trellis_adjust on the 4x4 levels."""
     H, W = src_y.shape
     mbh, mbw = H // 16, W // 16
     n = mbh * mbw
@@ -831,7 +918,8 @@ def encode_b_frame_core(src_y, src_u, src_v, ref0_y, ref0_u, ref0_v,
     pred_u = mbize(select(8, diu, p0u, p1u, biu, ref0_u, ref1_u), 8)
     pred_v = mbize(select(8, div, p0v, p1v, biv, ref0_v, ref1_v), 8)
     levels, _, t8_flag = _luma_residual_pipeline(
-        src_mbs, pred, qp, intra=False, decimate=decimate, t8=dct8x8)
+        src_mbs, pred, qp, intra=False, decimate=decimate, trellis=trellis,
+        t8=dct8x8)
     cbp_q = (levels != 0).any(dim=-1).reshape(n, 4, 4).any(dim=-1)
     bit = torch.tensor([1, 2, 4, 8], dtype=torch.int32, device=dev)
     cbp_luma = (cbp_q * bit).sum(dim=-1, dtype=torch.int32)
@@ -946,9 +1034,11 @@ def loop_filter_maps(out, qp: int, mbh: int, mbw: int, intra: bool,
     tensors: per-4x4 total_coeff of the cbp-masked levels (an 8x8-
     transformed MB's quadrant count on each of its four 4x4 blocks), the
     motion field broadcast to 4x4 blocks (mv8 where the frame has
-    partitions), an all-intra or all-inter frame, one reference, the
-    decoder-visible per-MB QP ('qp_real' under AQ, else qp), and no
-    internal 4x4 edges in 8x8-transformed MBs.  offA/offB are the full
+    partitions), an all-intra or all-inter frame, each MB's ref_idx
+    ('ref_idx' with several references, else 0: bS 1 across an edge
+    between different references), the decoder-visible per-MB QP
+    ('qp_real' under AQ, else qp), and no internal 4x4 edges in
+    8x8-transformed MBs.  offA/offB are the full
     (2 * div2) slice offsets.  Returns (mapsV, mapsH, mapsVc, mapsHc)
     int32, contiguous."""
     from ..ops.deblock import build_maps
@@ -975,7 +1065,11 @@ def loop_filter_maps(out, qp: int, mbh: int, mbw: int, intra: bool,
         else:
             mv4 = rep(rep(out["mv"].reshape(mbh, mbw, 2), 4, 0), 4, 1)
     intra_map = torch.full((mbh, mbw), intra, dtype=torch.bool, device=dev)
-    ref4 = torch.zeros(4 * mbh, 4 * mbw, dtype=torch.int32, device=dev)
+    if not intra and "ref_idx" in out:
+        ref4 = rep(rep(out["ref_idx"].reshape(mbh, mbw).to(torch.int32), 4,
+                       0), 4, 1)
+    else:
+        ref4 = torch.zeros(4 * mbh, 4 * mbw, dtype=torch.int32, device=dev)
     qp_map = (out["qp_real"].reshape(mbh, mbw) if "qp_real" in out
               else torch.full((mbh, mbw), qp, dtype=torch.int32, device=dev))
     t8_4 = (rep(rep(out["t8"].reshape(mbh, mbw), 4, 0), 4, 1)

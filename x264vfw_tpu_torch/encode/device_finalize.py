@@ -1,11 +1,12 @@
 """Device-side slice finalisation: syntax tensors -> slots -> packed bytes.
 
-Port of the I (I16x16 and I_NxN), one-reference P (P16x16 and the
-8x8-grid partitions, with transform_size_8x8_flag and mb_qp_delta) and B
-(16x16 modes, direct and B_Skip) parts of
-x264vfw_tpu/encode/device_finalize.py, with the in-loop deblock of the
-reference planes, and of its batched runs (encode_pgop_slots with
-MB-tree offsets and the anchors' recons, encode_bgop_slots, pack_batch).
+Port of the I (I16x16 and I_NxN), P (P16x16 from one reference or from
+a DPB of up to four with ref_idx, and the one-reference 8x8-grid
+partitions, with transform_size_8x8_flag and mb_qp_delta) and B (16x16
+modes, direct and B_Skip) parts of x264vfw_tpu/encode/device_finalize.py,
+with the in-loop deblock of the reference planes, and of its batched
+runs (encode_pgop_slots with MB-tree offsets, the sliding DPB and the
+anchors' recons, encode_bgop_slots, pack_batch).
 Everything between the per-MB compute and the NAL wrapper runs on the
 device: MV prediction, skip-run derivation, nC context maps, CAVLC slot
 generation (bitstream/cavlc_dev) and bit packing (device_pack).  The host
@@ -13,7 +14,7 @@ receives the packed payload bytes, about the size of the bitstream.
 
 I and B slices have the JAX code's slot layout.  P slices differ from
 it only in slots that are always zero-length where the port leaves them
-out: ref_idx (one reference) and, without --8x8dct,
+out: ref_idx with one reference and, without --8x8dct,
 transform_size_8x8_flag.  The packer drops zero-length slots, so the
 packed bytes are the same.
 
@@ -79,26 +80,20 @@ def _median3(a, b, c):
         - torch.minimum(a, torch.minimum(b, c))
 
 
-def p16_mv_pred(mv: torch.Tensor):
-    """(mbh, mbw, 2) -> (pmv, pmv_skip_is_zero): median MV prediction for
-    an all-P16x16 frame with one reference (§8.4.1.3) and the P_Skip
-    zero-forcing condition (§8.4.1.1)."""
+def p16_mv_pred(mv: torch.Tensor, ref: torch.Tensor | None = None):
+    """(mbh, mbw, 2)[, (mbh, mbw) ref_idx] -> (pmv, pmv_skip_is_zero):
+    median MV prediction for an all-P16x16 frame (§8.4.1.3) and the P_Skip
+    zero-forcing condition (§8.4.1.1).  With `ref`, the one neighbour of
+    the MB's own refIdx gives its vector directly when it is the only
+    such neighbour (§8.4.1.3.1; unavailable neighbours match none), and
+    a neighbour forces P_Skip's vector to 0 only at refIdx 0.  Without
+    it every MB is at refIdx 0."""
     mbh, mbw, _ = mv.shape
     dev = mv.device
-
-    def sh(arr, dy, dx):
-        out = torch.zeros_like(arr)
-        ys = slice(max(dy, 0), mbh + min(dy, 0))
-        xs = slice(max(dx, 0), mbw + min(dx, 0))
-        yd = slice(max(-dy, 0), mbh + min(-dy, 0))
-        xd = slice(max(-dx, 0), mbw + min(-dx, 0))
-        out[yd, xd] = arr[ys, xs]
-        return out
-
-    mvA = sh(mv, 0, -1)
-    mvB = sh(mv, -1, 0)
-    mvC = sh(mv, -1, 1)
-    mvD = sh(mv, -1, -1)
+    if ref is None:
+        ref = torch.zeros(mbh, mbw, dtype=torch.int32, device=dev)
+    mvA, mvB, mvC, mvD = _neighbours(mv)
+    rA, rB, rC, rD = _neighbours(ref)
     yy = torch.arange(mbh, device=dev)[:, None].expand(mbh, mbw)
     xx = torch.arange(mbw, device=dev)[None, :].expand(mbh, mbw)
     availA = xx > 0
@@ -106,21 +101,24 @@ def p16_mv_pred(mv: torch.Tensor):
     availC_raw = (yy > 0) & (xx < mbw - 1)
     availD = (yy > 0) & (xx > 0)
     mvC_eff = torch.where(availC_raw[..., None], mvC, mvD)
+    rC_eff = torch.where(availC_raw, rC, rD)
     availC = availC_raw | availD
 
     only_a = availA & ~availB & ~availC
-    # one reference: every available neighbour has the same refIdx
-    nmatch = availA.int() + availB.int() + availC.int()
+    msk_a = availA & (rA == ref)
+    msk_b = availB & (rB == ref)
+    msk_c = availC & (rC_eff == ref)
+    nmatch = msk_a.int() + msk_b.int() + msk_c.int()
     mA = torch.where(availA[..., None], mvA, 0)
     mB = torch.where(availB[..., None], mvB, 0)
     mC = torch.where(availC[..., None], mvC_eff, 0)
     med = _median3(mA, mB, mC)
-    one = torch.where(availA[..., None], mvA,
-                      torch.where(availB[..., None], mvB, mvC_eff))
+    one = torch.where(msk_a[..., None], mvA,
+                      torch.where(msk_b[..., None], mvB, mvC_eff))
     pmv = torch.where(only_a[..., None], mvA,
                       torch.where((nmatch == 1)[..., None], one, med))
-    zeroA = availA & (mvA == 0).all(-1)
-    zeroB = availB & (mvB == 0).all(-1)
+    zeroA = availA & (rA == 0) & (mvA == 0).all(-1)
+    zeroB = availB & (rB == 0) & (mvB == 0).all(-1)
     skip_cond = (~availA) | (~availB) | zeroA | zeroB
     pmv_skip = torch.where(skip_cond[..., None], 0, pmv)
     return pmv, (pmv_skip == 0).all(-1)
@@ -177,8 +175,14 @@ def colocated_mv(out, n: int) -> torch.Tensor:
     it (spatial direct's colZeroFlag, §8.4.1.2.2): (n, 2), per MB its
     vector, or with partitions the per-component max |mv| over its 8x8
     quadrants (the P core's 'mv'), so the B core's |mv| <= 1 test stays
-    a conservative colZeroFlag.  One reference: refIdxCol is always 0."""
-    return out["mv"].reshape(n, 2)
+    a conservative colZeroFlag.  colZeroFlag also needs refIdxCol 0, so
+    an MB predicted from ref_idx > 0 reports the vector (4096, 4096),
+    which is never colZero."""
+    mv = out["mv"].reshape(n, 2)
+    if "ref_idx" in out:
+        mv = torch.where((out["ref_idx"].reshape(n) != 0)[:, None],
+                         1 << 12, mv).to(mv.dtype)
+    return mv
 
 
 def _stack_rows(hdr_vals, hdr_lens, mb_vals, mb_lens, tail_vals, tail_lens):
@@ -239,19 +243,37 @@ def _tail(hdr_lens, mb_lens, trailing=None):
             torch.cat(tl + [(1 + pad).reshape(1).to(torch.int32)]))
 
 
-def _mb_header_p16(out, mbh: int, mbw: int, cbp):
-    """P16x16 header slots [mb_type, mvd x, mvd y] and the skip flags."""
+def _mb_header_p16(out, mbh: int, mbw: int, cbp, nref: int = 1):
+    """P16x16 header slots [mb_type, (ref_idx_l0), mvd x, mvd y] and the
+    skip flags.  With 'ref_idx' in `out`, P_Skip needs refIdx 0 and the
+    prediction reads the neighbours' refIdx (p16_mv_pred); the ref_idx
+    slot is there when nref > 1: te(v), one bit !ref_idx at nref 2, else
+    ue(v)."""
     n = mbh * mbw
     mv = out["mv"].reshape(mbh, mbw, 2)
-    pmv, skip_zero = p16_mv_pred(mv)
+    ref = out.get("ref_idx")
+    pmv, skip_zero = p16_mv_pred(
+        mv, None if ref is None else ref.reshape(mbh, mbw))
     mv_flat = mv.reshape(n, 2)
     skip = (cbp == 0) & (mv_flat == 0).all(dim=1) & skip_zero.reshape(n)
+    if ref is not None:
+        skip = skip & (ref.reshape(n) == 0)         # P_Skip is refIdx 0
     mvd = mv_flat - pmv.reshape(n, 2)
     xv, xl = cd.se_codes_dev(mvd[:, 0])
     yv, yl = cd.se_codes_dev(mvd[:, 1])
     one = torch.ones(n, dtype=torch.int64, device=mv.device)
-    return (torch.stack([one, xv, yv], dim=1),     # ue(P_L0_16x16 = 0) = '1'
-            torch.stack([one.int(), xl, yl], dim=1), skip)
+    vals, lens = [one], [one.int()]                 # ue(P_L0_16x16 = 0) = '1'
+    if nref > 1 and ref is not None:
+        ref = ref.reshape(n)
+        if nref == 2:
+            vals.append((1 - ref).to(torch.int64))
+            lens.append(one.int())
+        else:
+            rv, rl = cd.ue_codes_dev(ref)
+            vals.append(rv)
+            lens.append(rl.int())
+    return (torch.stack(vals + [xv, yv], dim=1),
+            torch.stack(lens + [xl, yl], dim=1), skip)
 
 
 def _mb_header_parts(out, mbh: int, mbw: int, cbp):
@@ -285,9 +307,10 @@ def _mb_header_parts(out, mbh: int, mbw: int, cbp):
 
 
 def _finalize_p_core(out, hdr_vals, hdr_lens, mbh: int, mbw: int,
-                     t8_mode: bool = False):
-    """P-slice syntax tensors (one reference; P16x16, or the 8x8-grid
-    partitions when `out` has 'part') -> slot rows.  t8_mode: the PPS
+                     t8_mode: bool = False, nref: int = 1):
+    """P-slice syntax tensors (P16x16, with 'ref_idx' from nref
+    references; or the one-reference 8x8-grid partitions when `out` has
+    'part') -> slot rows.  t8_mode: the PPS
     enables the 8x8 transform, so every MB with luma cbp codes
     transform_size_8x8_flag ('t8', 0 where `out` has none); 'qp_delta' in
     `out` gives the MBs with a coded residual their se(mb_qp_delta)."""
@@ -295,8 +318,10 @@ def _finalize_p_core(out, hdr_vals, hdr_lens, mbh: int, mbw: int,
     dev = out["mv"].device
     cbp_luma = out["cbp_luma"]
     cbp = cbp_luma | (out["cbp_chroma"] << 4)
-    head = _mb_header_parts if "part" in out else _mb_header_p16
-    tv, tl, skip = head(out, mbh, mbw, cbp)
+    if "part" in out:
+        tv, tl, skip = _mb_header_parts(out, mbh, mbw, cbp)
+    else:
+        tv, tl, skip = _mb_header_p16(out, mbh, mbw, cbp, nref)
 
     i = torch.arange(n, dtype=torch.int32, device=dev)
     ns = ~skip
@@ -530,22 +555,26 @@ def encode_p_slots(src_yuv, ref_y, ref_u, ref_v, qp: int, qpc: int,
                    me_backend: str = "auto", deblock: bool = False,
                    dbA: int = 0, dbB: int = 0, qpc_offset: int = 0,
                    partitions: bool = False, aq_strength: float = 0.0,
-                   wp=None, dct8x8: bool = False, qp_off=None):
+                   wp=None, dct8x8: bool = False, qp_off=None,
+                   trellis: bool = False):
     """Fused P-frame phase 1: unpack the uint8 frame -> P encode (with AQ,
-    MB-tree's per-MB QP offsets qp_off, weighted prediction and the 8x8
-    transform decision when asked) -> slot rows, and the (deblocked when
-    `deblock`) recon.  Returns (slot_vals, slot_lens, recon_y, recon_u,
-    recon_v, out): `out` holds the syntax tensors, among them 'mv' and,
-    with partitions, 'part' and 'mv8'."""
+    MB-tree's per-MB QP offsets qp_off, weighted prediction, the 8x8
+    transform decision and trellis when asked; over R references when
+    the reference planes are stacked (R, H, W) in ref_idx order) -> slot
+    rows, and the (deblocked when `deblock`) recon.  Returns (slot_vals,
+    slot_lens, recon_y, recon_u, recon_v, out): `out` holds the syntax
+    tensors, among them 'mv', with several references 'ref_idx' and with
+    partitions 'part' and 'mv8'."""
     from .device import encode_p_frame_core
-    H, W = ref_y.shape
+    H, W = ref_y.shape[-2:]
     out = encode_p_frame_core(*_unpack_src(src_yuv, H, W), ref_y, ref_u,
                               ref_v, qp, qpc, rng, subpel, me_backend,
                               partitions=partitions, aq_strength=aq_strength,
                               qpc_offset=qpc_offset, wp=wp, dct8x8=dct8x8,
-                              qp_off=qp_off)
+                              qp_off=qp_off, trellis=trellis)
     v, l = _finalize_p_core(out, hdr_vals, hdr_lens, H // 16, W // 16,
-                            t8_mode=dct8x8)
+                            t8_mode=dct8x8,
+                            nref=ref_y.shape[0] if ref_y.dim() == 3 else 1)
     return (v, l, *_maybe_deblock(out, qp, H // 16, W // 16, False, deblock,
                                   dbA, dbB, qpc_offset), out)
 
@@ -556,10 +585,12 @@ def encode_pgop_slots(frames_yuv, ref_y, ref_u, ref_v, qps, qpcs,
                       dbA: int = 0, dbB: int = 0, qpc_offset: int = 0,
                       partitions: bool = False, aq_strength: float = 0.0,
                       dct8x8: bool = False, qp_offs=None,
-                      want_recons: bool = False):
+                      want_recons: bool = False, trellis: bool = False):
     """Batched P-frame phase 1: the G frames of a run, each encoded
-    against the (deblocked when `deblock`) recon of the one before, with
-    one reference, without weighted prediction (as in the JAX package:
+    against the (deblocked when `deblock`) recon of the one before, or,
+    with reference planes stacked (R, H, W), against a sliding DPB of R
+    references in which each frame's recon enters at ref_idx 0 and the
+    oldest leaves; without weighted prediction (as in the JAX package:
     its batched P program takes no weights).  The JAX package's lax.scan
     is a Python loop over encode_p_slots here.  It packs nothing, so no
     bit count is read back (pack_batch reads them when the run is
@@ -570,23 +601,29 @@ def encode_pgop_slots(frames_yuv, ref_y, ref_u, ref_v, qps, qpcs,
     frame, as rate control chose); hdr_vals/hdr_lens: (G, MAX_HDR);
     qp_offs: None or (G, n) int32 per-MB QP offsets (MB-tree).
     Returns (slot_vals (G, rows, L), slot_lens (G, rows, L), recon_y,
-    recon_u, recon_v of the last frame, mv (G, n, 2) the colocated
-    fields (colocated_mv)) and, with want_recons, a list of G (y, u, v)
-    uint8 recons, the references of the B frames around these anchors."""
+    recon_u, recon_v of the last frame (with stacked references the final
+    DPB, stacked), mv (G, n, 2) the colocated fields (colocated_mv)) and,
+    with want_recons, a list of G (y, u, v) uint8 recons, the references
+    of the B frames around these anchors."""
     ref = (ref_y, ref_u, ref_v)
+    multi = ref_y.dim() == 3
     vs, ls, mvs, recons = [], [], [], []
-    n = (ref_y.shape[0] // 16) * (ref_y.shape[1] // 16)
+    H, W = ref_y.shape[-2:]
+    n = (H // 16) * (W // 16)
     for g in range(frames_yuv.shape[0]):
-        v, l, *ref, out = encode_p_slots(
+        v, l, *rec, out = encode_p_slots(
             frames_yuv[g], *ref, qps[g], qpcs[g], hdr_vals[g], hdr_lens[g],
             rng, subpel, me_backend, deblock, dbA, dbB, qpc_offset,
             partitions, aq_strength, dct8x8=dct8x8,
-            qp_off=None if qp_offs is None else qp_offs[g])
+            qp_off=None if qp_offs is None else qp_offs[g], trellis=trellis)
+        # the newest recon enters the DPB at ref_idx 0
+        ref = (tuple(torch.cat([r[None], old[:-1]]) for r, old in
+                     zip(rec, ref)) if multi else rec)
         vs.append(v)
         ls.append(l)
         mvs.append(colocated_mv(out, n))
         if want_recons:
-            recons.append(tuple(p.to(torch.uint8) for p in ref))
+            recons.append(tuple(p.to(torch.uint8) for p in rec))
     res = (torch.stack(vs), torch.stack(ls), *ref, torch.stack(mvs))
     return res + (recons,) if want_recons else res
 
@@ -598,7 +635,9 @@ def encode_b_slots(src_yuv, ref0_y, ref0_u, ref0_v, ref1_y, ref1_u, ref1_v,
     """Fused B-frame phase 1: unpack the uint8 frame -> B encode between
     the two anchors (any integer dtype, the values 0..255) -> slot rows.
     mvcol: (n, 2) the later anchor's colocated field.  B frames are
-    non-reference: no recon.  Returns (slot_vals, slot_lens)."""
+    non-reference: no recon.  As in the JAX package, whose B programs take
+    no trellis, they are quantised without it.  Returns (slot_vals,
+    slot_lens)."""
     from .device import encode_b_frame_core
     H, W = ref0_y.shape
     refs = [p.to(torch.int32) for p in (ref0_y, ref0_u, ref0_v, ref1_y,

@@ -1,7 +1,7 @@
 """Batched session pipeline: the session's path when it is not zero-latency.
 
-Port of x264vfw_tpu/encode/pipeline.py :: BatchPipeline, one reference.
-The session buffers a window of display-order frames, then:
+Port of x264vfw_tpu/encode/pipeline.py :: BatchPipeline.  The session
+buffers a window of display-order frames, then:
 
   * hands each frame through MB-tree first (--mbtree: encode/lookahead
     MBTree, which holds rc_lookahead frames back and attaches per-MB QP
@@ -20,7 +20,11 @@ The session buffers a window of display-order frames, then:
     an anchor after every N buffered B candidates, all anchors of the
     run as one batch (which keeps their recons and colocated fields),
     then every B frame of the run as one batch between its two anchors
-    (encode_bgop_slots).  Candidates left over wait for the next run;
+    (encode_bgop_slots).  Candidates left over wait for the next run.
+    With --ref N > 1 the anchors are encoded per frame (encode_frame)
+    while the DPB holds fewer than N references, and the rest of the run
+    as one batch over the sliding DPB, which the batch's last N recons
+    then replace;
   * returns the run's access units as deferred handles (_Lazy), whose
     packing (which reads each frame's bit count) and, with --cabac, host
     transcode (a thread pool of 4; the C passes release the GIL) wait
@@ -72,8 +76,9 @@ class _Group:
     until the first AU of the batch is asked for, then its wrapped AUs."""
 
     def __init__(self, pipe, vs, ls, hdr_bits: list, slice_type: str,
-                 qps: list, nal_ref_idc: int):
+                 qps: list, nal_ref_idc: int, nref: int = 1):
         self.pipe = pipe
+        self.nref = nref
         self.vs = vs
         self.ls = ls
         self.hdr_bits = hdr_bits
@@ -92,17 +97,13 @@ class _Group:
             ends = np.cumsum(nbytes)
             self._aus = self.pipe._wrap_all(
                 [blob[e - n:e] for e, n in zip(ends, nbytes)], self.hdr_bits,
-                self.slice_type, self.qps, self.nal_ref_idc)
+                self.slice_type, self.qps, self.nal_ref_idc, self.nref)
             self.vs = self.ls = None
         return self._aus
 
 
 class BatchPipeline:
     def __init__(self, enc: TorchEncoder, rc, mbtree=None, window: int = 12):
-        if enc.cfg.num_ref_frames > 1:
-            raise NotImplementedError(
-                "the batched session carries one reference; multi-ref is "
-                "not ported yet there (ROADMAP.md, queue A)")
         self.enc = enc
         self.rc = rc
         self.mbtree = mbtree
@@ -271,12 +272,29 @@ class BatchPipeline:
         return out
 
     def _p_batch(self, items: list, qps: list, want_bextras: bool = False):
-        """Dispatch P display frames (y, u, v, qp_off, d) as one batch.
-        Returns (the AUs as _Lazy handles, the frames' uint8 recons and
-        colocated fields, the frame_num counter after each frame); the
-        recons only with want_bextras, the B frames' references."""
+        """Dispatch P display frames (y, u, v, qp_off, d) as one batch;
+        with --ref N > 1 the first ones per frame while the DPB holds fewer
+        than N references.  Returns (the AUs, those of the batch as _Lazy
+        handles; the frames' recons (the B frames' references, only with
+        want_bextras) and colocated fields; the frame_num counter after
+        each frame)."""
         enc = self.enc
         cfg = enc.cfg
+        aus, recons, mvs, fn_after = [], [], [], []
+        while enc.nref > 1 and len(enc.dpb) < enc.nref and items:
+            (y, u, v, off, d), *items = items
+            enc.poc = 2 * (d - enc.poc_base)
+            aus.append(enc.encode_frame(y, u, v, qp=qps[0], force_idr=False,
+                                        qp_off=off))
+            qps = qps[1:]
+            fn_after.append(enc.frame_num)
+            mvs.append(enc.last_mv)
+            if want_bextras:
+                # the recon as the encoder keeps it (int32 on the device):
+                # the B phase takes any integer dtype, so no copy is made
+                recons.append(enc.ref)
+        if not items:
+            return aus, recons, mvs, fn_after
         G = len(items)
         rows = torch.from_numpy(enc.pack_batch_rows(
             [it[:3] for it in items])).to(enc.device)
@@ -285,8 +303,9 @@ class BatchPipeline:
         n = enc.mbh * enc.mbw
         has_off = any(it[3] is not None for it in items)
         qp_offs = np.zeros((G, n), np.int32) if has_off else None
-        fn_after = []
-        enc._wp = None      # the batched program predicts without weights
+        # the batched program predicts without weights, from the whole DPB
+        enc._wp = None
+        enc._cur_nref = min(len(enc.dpb), enc.nref) if enc.nref > 1 else 1
         for k, it in enumerate(items):
             enc.qp = int(min(max(qps[k], 0), 51))
             enc.poc = 2 * (it[4] - enc.poc_base)
@@ -300,23 +319,30 @@ class BatchPipeline:
             fn_after.append(enc.frame_num)
         offset = enc.pps.chroma_qp_index_offset
         qpcs = [int(tables.chroma_qp(q, offset)) for q in qps]
+        multi = enc.nref > 1
         res = F.encode_pgop_slots(
-            rows, *enc.ref, qps, qpcs,
+            rows, *(enc.stacked_dpb() if multi else enc.ref), qps, qpcs,
             torch.from_numpy(hvs).to(enc.device),
             torch.from_numpy(hls).to(enc.device),
             cfg.search_range, cfg.subpel, cfg.me_backend, cfg.deblock,
-            cfg.deblock_alpha, cfg.deblock_beta, offset, cfg.partitions,
+            cfg.deblock_alpha, cfg.deblock_beta, offset, enc.partitions,
             cfg.aq_strength, cfg.dct8x8,
             None if qp_offs is None
             else torch.from_numpy(qp_offs).to(enc.device),
-            want_recons=want_bextras)
-        vs, ls, ry, ru, rv, mvs = res[:6]
-        enc.ref = (ry, ru, rv)
-        enc.last_mv = mvs[-1]
+            want_recons=want_bextras, trellis=cfg.trellis)
+        vs, ls, ry, ru, rv, batch_mvs = res[:6]
+        if multi:
+            enc.dpb = [(ry[i], ru[i], rv[i]) for i in range(ry.shape[0])]
+            enc.ref = enc.dpb[0]
+        else:
+            enc.ref = (ry, ru, rv)
+        enc.last_mv = batch_mvs[-1]
         group = _Group(self, vs, ls, [int(h.sum()) for h in hls], "P",
-                       list(qps), 3)
-        aus = [_Lazy(group, g) for g in range(G)]
-        return aus, (res[6] if want_bextras else []), list(mvs), fn_after
+                       list(qps), 3, enc._cur_nref)
+        aus += [_Lazy(group, g) for g in range(G)]
+        if want_bextras:
+            recons += res[6]
+        return aus, recons, mvs + list(batch_mvs), fn_after
 
     def _b_batch(self, b_items: list, hdrs: list, qp_b: int) -> list:
         """Dispatch B frames (y, u, v, ref0, ref1, mvcol) with their header
@@ -341,10 +367,11 @@ class BatchPipeline:
 
     # ------------------------------------------------------- entropy out
     def _wrap_all(self, payloads: list, hdr_bits: list, slice_type: str,
-                  qps: list, nal_ref_idc: int) -> list:
+                  qps: list, nal_ref_idc: int, nref: int = 1) -> list:
         """Wrap a batch's CAVLC slices into AUs; with --cabac transcode
-        each slice first, in the thread pool, and return them in order.
-        A slice the transcoder rejects raises."""
+        each slice (of a P batch over nref references) first, in the
+        thread pool, and return them in order.  A slice the transcoder
+        rejects raises."""
         enc = self.enc
         if not enc.cfg.cabac:
             return [wrap_nal(nal_ref_idc, NAL_SLICE, p) for p in payloads]
@@ -355,7 +382,7 @@ class BatchPipeline:
             p, hb, qp = args
             body = cabac_transcode.transcode_slice(
                 p, int(hb), slice_type, enc.mbh, enc.mbw, int(qp),
-                t8_mode=t8_mode)
+                nref=nref, t8_mode=t8_mode)
             if body is None:
                 raise RuntimeError(f"the CABAC transcode rejected the "
                                    f"encoder's own CAVLC {slice_type} slice")

@@ -1,22 +1,26 @@
 """Encoder session object: device pipeline + host NAL wrapping (PyTorch).
 
 Port of the per-frame device path of x264vfw_tpu/encode/tpu_encoder.py ::
-TpuEncoder, one reference: push_frame (the scene-cut IDR decision and,
-with --bframes, the B-frame scheduler: display order in, decode order
-out) -> encode_frame (I and P) or _encode_b -> one uint8 upload, the
-fused I, P or B phase 1 (encode/device_finalize.py: I16x16 and I_NxN, P
-with AQ, MB-tree QP offsets, weighted prediction and the 8x8 transform,
-B with the direct/skip flips, the in-loop deblock of I and P when the
-config asks for it), a pack sized from the slot lengths, one pull of the
-payload bytes, with --cabac the host CABAC transcode of that CAVLC slice
-(bitstream/cabac_transcode.py), and the NAL wrap on the host.  Reference
-frames (deblocked when the slice filters) stay on the device between
-frames; B frames are non-reference.  The batched session
-(encode/pipeline.py) drives the same object: it reads and writes
-display_idx, _last_idr_d, poc_base, poc, qp, frame_num and frame_idx,
-writes slice headers with _slice_header_codes, uploads a run of frames
-with pack_batch_rows and encodes IDRs, tail anchors and tail B frames
-with encode_frame and _encode_b.
+TpuEncoder: push_frame (the scene-cut IDR decision and, with --bframes,
+the B-frame scheduler: display order in, decode order out) ->
+encode_frame (I and P) or _encode_b -> one uint8 upload, the fused I, P
+or B phase 1 (encode/device_finalize.py: I16x16 and I_NxN, P with AQ,
+MB-tree QP offsets, weighted prediction, the 8x8 transform, trellis and,
+with --ref N, a search over the DPB, B with the direct/skip flips, the
+in-loop deblock of I and P when the config asks for it), a pack sized
+from the slot lengths, one pull of the payload bytes, with --cabac the
+host CABAC transcode of that CAVLC slice (bitstream/cabac_transcode.py),
+and the NAL wrap on the host.  Reference frames (deblocked when the
+slice filters) stay on the device between frames: the last one (ref)
+and, with --ref N > 1, the DPB of the last N I and P frames (dpb, newest
+first, reset at each IDR; a P frame uses as many as it holds,
+_cur_nref).  B frames are non-reference and keep one reference per list,
+the anchors on either side.  The batched session (encode/pipeline.py)
+drives the same object: it reads and writes display_idx, _last_idr_d,
+poc_base, poc, qp, frame_num, frame_idx, dpb and _cur_nref, writes slice
+headers with _slice_header_codes, uploads a run of frames with
+pack_batch_rows and encodes IDRs, the anchors that fill the DPB, tail
+anchors and tail B frames with encode_frame and _encode_b.
 
 Header conventions (SPS profile/level/DPB size, PPS, slice headers,
 version SEI) are the JAX package's, byte for byte.
@@ -41,18 +45,8 @@ from . import device_finalize
 from .ref_encoder import EncoderConfig
 
 
-def _unsupported(cfg: EncoderConfig) -> list[str]:
-    """Options of cfg that this port does not carry yet."""
-    return [name for name, on in (("ref > 1", cfg.num_ref_frames > 1),
-                                  ("trellis", cfg.trellis)) if on]
-
-
 class TorchEncoder:
     def __init__(self, cfg: EncoderConfig, device=None) -> None:
-        missing = _unsupported(cfg)
-        if missing:
-            raise NotImplementedError(
-                f"not ported yet: {', '.join(missing)} (ROADMAP.md, queue A)")
         if cfg.width % 2 or cfg.height % 2:
             raise ValueError(f"odd geometry {cfg.width}x{cfg.height}")
         self.cfg = cfg
@@ -88,10 +82,16 @@ class TorchEncoder:
             self.sps.frame_crop_right_offset = (self.mbw * 16 - cfg.width) // 2
             self.sps.frame_crop_bottom_offset = (self.mbh * 16 - cfg.height) // 2
         _apply_vui(self.sps, cfg)
+        # --ref: the DPB's depth.  P frames search all of it; B frames keep
+        # one reference per list (their slice headers override the active
+        # counts to 1 and 1).  P partitions are searched with one
+        # reference only: with several, P MBs stay 16x16.
+        self.nref = max(1, min(cfg.num_ref_frames, 4))
+        self.partitions = bool(cfg.partitions) and self.nref == 1
         self.pps = PPS(entropy_coding_mode_flag=1 if cfg.cabac else 0,
                        pic_init_qp_minus26=cfg.qp - 26,
                        weighted_pred_flag=1 if cfg.weightp > 0 else 0,
-                       num_ref_idx_l0_default_active_minus1=0,
+                       num_ref_idx_l0_default_active_minus1=self.nref - 1,
                        chroma_qp_index_offset=min(max(cfg.chroma_qp_offset,
                                                       -12), 12),
                        deblocking_filter_control_present_flag=1,
@@ -111,6 +111,9 @@ class TorchEncoder:
         self._last_idr_d: int | None = None
         self.pending: list = []        # buffered B candidates (y, u, v, d)
         self.ref: tuple | None = None  # device (y, u, v) int32 recon
+        self.dpb: list = []            # with nref > 1: the last nref
+        #                                references (y, u, v), newest first
+        self._cur_nref = 1             # references the last P frame used
         self.last_mv = None            # device (n, 2) colocated field of the
         #                                last P (device_finalize.colocated_mv)
         self.last_mv8 = None           # its 8x8-grid field, with partitions
@@ -128,16 +131,22 @@ class TorchEncoder:
         return y[:h, :w], u[:h // 2, :w // 2], v[:h // 2, :w // 2]
 
     def load_state(self, state) -> None:
-        """Resume from a convert.EncoderState, e.g. a JAX encoder's DPB,
-        counters, weight-analysis and scene-cut state, and with B frames
-        the frames pending for the next anchor, the last anchor's
-        colocated field and the display index.  Without B frames the
-        display index is frame_idx unless the state says otherwise."""
+        """Resume from a convert.EncoderState, e.g. a JAX encoder's last
+        reference and DPB, counters, weight-analysis and scene-cut state,
+        and with B frames the frames pending for the next anchor, the last
+        anchor's colocated field and the display index.  Without B frames
+        the display index is frame_idx unless the state says otherwise.
+        A state without a DPB gives an encoder with --ref > 1 the last
+        reference alone."""
         H, W = self.mbh * 16, self.mbw * 16
         if tuple(state.ref[0].shape) != (H, W):
             raise ValueError(f"reference is {tuple(state.ref[0].shape)}, "
                              f"the encoder codes {(H, W)}")
         self.ref = tuple(p.to(self.device, torch.int32) for p in state.ref)
+        if self.nref > 1:
+            self.dpb = ([tuple(p.to(self.device, torch.int32) for p in r)
+                         for r in state.dpb[:self.nref]] if state.dpb
+                        else [self.ref])
         self.frame_idx = state.frame_idx
         self.display_idx = (state.frame_idx if state.display_idx is None
                             else state.display_idx)
@@ -294,16 +303,21 @@ class TorchEncoder:
             nal_type = NAL_SLICE
             self._wp = (self._weight_analysis(y) if cfg.weightp > 0
                         else None)
+            # the DPB's references, stacked, once it holds more than one
+            self._cur_nref = (min(len(self.dpb), self.nref)
+                              if self.nref > 1 and len(self.dpb) > 1 else 1)
+            refs = (self.stacked_dpb() if self._cur_nref > 1 else self.ref)
             hv, hl = self._header_slots(SLICE_P, nal_type)
             sv_, sl_, ry, ru, rv, out = device_finalize.encode_p_slots(
-                src_d, *self.ref, self.qp, self.qpc, hv, hl,
+                src_d, *refs, self.qp, self.qpc, hv, hl,
                 cfg.search_range, cfg.subpel, cfg.me_backend,
                 cfg.deblock, cfg.deblock_alpha, cfg.deblock_beta,
                 qpc_offset=self.pps.chroma_qp_index_offset,
-                partitions=cfg.partitions, aq_strength=cfg.aq_strength,
+                partitions=self.partitions, aq_strength=cfg.aq_strength,
                 wp=self._wp, dct8x8=cfg.dct8x8,
                 qp_off=None if qp_off is None else torch.as_tensor(
-                    np.asarray(qp_off, np.int32), device=self.device))
+                    np.asarray(qp_off, np.int32), device=self.device),
+                trellis=cfg.trellis)
             self.last_mv = device_finalize.colocated_mv(
                 out, self.mbh * self.mbw)
             self.last_mv8 = out.get("mv8")
@@ -312,6 +326,8 @@ class TorchEncoder:
         if cfg.cabac:
             payload = self._transcode(payload, hl, "I" if is_idr else "P")
         self.ref = (ry, ru, rv)
+        if self.nref > 1:
+            self.dpb = ([self.ref] + ([] if is_idr else self.dpb))[:self.nref]
         bs = b""
         if is_idr:
             bs += self.headers()
@@ -322,6 +338,12 @@ class TorchEncoder:
         if is_idr:
             self.idr_id = (self.idr_id + 1) % 65536
         return bs
+
+    def stacked_dpb(self) -> tuple:
+        """The DPB's first _cur_nref entries as (R, H, W) y, u and v
+        stacks, ref_idx order."""
+        return tuple(torch.stack([r[pl] for r in self.dpb[:self._cur_nref]])
+                     for pl in range(3))
 
     def pack_batch_rows(self, batch: list) -> np.ndarray:
         """(y, u, v) frames -> the (G, H*W*3/2) uint8 rows the device
@@ -344,6 +366,7 @@ class TorchEncoder:
         t0 = time.perf_counter()
         body = cabac_transcode.transcode_slice(
             payload, int(hl.sum()), slice_type, self.mbh, self.mbw, self.qp,
+            nref=self._cur_nref,
             t8_mode=bool(self.pps.transform_8x8_mode_flag))
         if body is None:
             raise RuntimeError(f"the CABAC transcode rejected the encoder's "
@@ -401,9 +424,18 @@ class TorchEncoder:
                         else 1,
                         slice_alpha_c0_offset_div2=self.cfg.deblock_alpha,
                         slice_beta_offset_div2=self.cfg.deblock_beta)
+        if self.nref > 1 and slice_type == SLICE_P:
+            # the active count: the references the DPB holds (fewer than
+            # --ref right after an IDR)
+            h.num_ref_idx_active_override_flag = 1
+            h.num_ref_idx_l0_active_minus1 = self._cur_nref - 1
+        if self.nref > 1 and slice_type == SLICE_B:
+            h.num_ref_idx_active_override_flag = 1
+            h.num_ref_idx_l0_active_minus1 = 0
+            h.num_ref_idx_l1_active_minus1 = 0
         if self.pps.weighted_pred_flag and slice_type == SLICE_P:
             h.luma_log2_weight_denom = 6
-            h.luma_weights_l0 = [self._wp]
+            h.luma_weights_l0 = [self._wp] * self._cur_nref
         h.write(w, self.sps, self.pps, nal_type, nal_ref_idc)
         return w
 

@@ -38,6 +38,43 @@ NAMES = ("v16", "k16", "v168", "k168", "v816", "k816", "v8", "k8")
 
 _fns: dict = {}
 
+# the most elements of shifted windows one window_sads step forms (the
+# rest of the offsets wait for the next step): 128 MB of int16
+_WINDOW_ELEMS = 1 << 26
+
+
+def argmin_first(cost: torch.Tensor):
+    """(N, ...) integer costs -> (index of the first minimum over dim 0,
+    the minimum), from one int64 key cost * N + index: the tie-break of
+    jnp.argmin, whatever order the device reduces in."""
+    N = cost.shape[0]
+    idx = torch.arange(N, device=cost.device).reshape(
+        N, *([1] * (cost.dim() - 1)))
+    key = (cost.to(torch.int64) * N + idx).amin(dim=0)
+    return key % N, key // N
+
+
+def window_sads(src: torch.Tensor, plane: torch.Tensor, ky: int, kx: int,
+                bh: int, bw: int) -> torch.Tensor:
+    """SAD of every bh x bw block of src (B, R, C) against plane
+    (B, R + ky - 1, C + kx - 1) at every offset (oy, ox) in
+    [0, ky) x [0, kx): (ky * kx, B, R // bh, C // bw) int32, offsets in
+    row-major (oy, ox) order.  The shifted windows are strided views of
+    plane, taken a few offset rows at a time."""
+    plane = plane.contiguous()
+    B, R, C = src.shape
+    sb, sr, sc = plane.stride()
+    step = max(1, _WINDOW_ELEMS // (kx * src.numel()))
+    out = []
+    for oy in range(0, ky, step):
+        n = min(step, ky - oy)
+        win = plane.as_strided((n, kx, B, R, C), (sr, sc, sb, sr, sc),
+                               plane.storage_offset() + oy * sr)
+        d = (src - win).abs_()
+        out.append(d.reshape(n * kx, B, R // bh, bh, C // bw, bw)
+                   .sum(dim=(3, 5), dtype=torch.int32))
+    return torch.cat(out)
+
 
 def _kernel(quad: bool = False):
     fn = _fns.get(quad)
@@ -120,41 +157,31 @@ def sad16_argmin(src_y: torch.Tensor, ref_pad: torch.Tensor,
 
 def sad_partition_minima_plain(src_y: torch.Tensor, ref_pad: torch.Tensor,
                                R: int, scales: tuple = (4, 2, 2, 1)) -> dict:
-    """Plain PyTorch version: a loop over the K^2 offsets of full-plane
-    abs, block sums and a running lexicographic (cost, k) minimum (the
-    counterpart of the JAX package's XLA search, device.py:352-363).
-    Offsets run in increasing k and only a strictly smaller cost replaces
-    the running best, so ties keep the smallest k."""
+    """Plain PyTorch version (the counterpart of the JAX package's XLA
+    search, device.py:352-363): the 8x8 SADs at every offset
+    (window_sads), each partition shape's costs from them, and per block
+    the least cost, ties to the smallest k (argmin_first)."""
     H, W = src_y.shape
     mbh, mbw = H // 16, W // 16
     K = 2 * R + 1
     s0, s1, s2, s3 = (int(s) for s in scales)
-    src = src_y.to(torch.int32)
-    ref = ref_pad.to(torch.int32)
     i32 = torch.int32
-    best = {k: torch.full(s, 1 << 30, dtype=i32, device=src.device)
-            for k, s in _out_shapes(mbh, mbw).items() if k[0] == "v"}
-    arg = {k: torch.zeros(s, dtype=i32, device=src.device)
-           for k, s in _out_shapes(mbh, mbw).items() if k[0] == "k"}
-    for oy in range(K):
-        for ox in range(K):
-            k = oy * K + ox
-            pen = abs(oy - R) + abs(ox - R)
-            d = (src - ref[oy:oy + H, ox:ox + W]).abs()
-            q = d.reshape(2 * mbh, 8, 2 * mbw, 8).sum((1, 3), dtype=i32)
-            q4 = q.reshape(mbh, 2, mbw, 2)
-            costs = {
-                "16": 4 * q4.sum((1, 3), dtype=i32) + s0 * pen,
-                "168": 4 * q4.sum(3, dtype=i32).transpose(1, 2) + s1 * pen,
-                "816": 4 * q4.sum(1, dtype=i32) + s2 * pen,
-                "8": 4 * q + s3 * pen,
-            }
-            for name, c in costs.items():
-                upd = c < best["v" + name]
-                best["v" + name] = torch.minimum(c, best["v" + name])
-                arg["k" + name] = arg["k" + name].masked_fill(upd, k)
-    return {k: (best[k] if k[0] == "v" else arg[k]).contiguous()
-            for k in NAMES}
+    q = window_sads(src_y.to(torch.int16)[None],
+                    ref_pad.to(torch.int16)[None], K, K, 8, 8)[:, 0]
+    o = (torch.arange(K, device=src_y.device) - R).abs()
+    pen = (o[:, None] + o[None, :]).reshape(K * K, 1, 1).to(i32)
+    q4 = q.reshape(K * K, mbh, 2, mbw, 2)
+    costs = {
+        "16": 4 * q4.sum((2, 4), dtype=i32) + s0 * pen,
+        "168": 4 * q4.sum(4, dtype=i32).transpose(2, 3) + s1 * pen[..., None],
+        "816": 4 * q4.sum(2, dtype=i32) + s2 * pen[..., None],
+        "8": 4 * q + s3 * pen,
+    }
+    out = {}
+    for name, c in costs.items():
+        k, v = argmin_first(c)
+        out["k" + name], out["v" + name] = k.to(i32), v.to(i32)
+    return {k: out[k].contiguous() for k in NAMES}
 
 
 def sad_search_quad(src_y: torch.Tensor, ref_pad: torch.Tensor,
