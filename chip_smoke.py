@@ -6,7 +6,7 @@ Builds every kernel of the port's main paths from csrc/ with nvcc (one
 nvcc per source, in parallel) and holds each kernel against its plain
 PyTorch version on the card: the full-search SAD (minima and quad mode),
 partition_refine_mc and deblock_apply (and deblock_apply's repeated calls
-against each other).  Then drives seven 1080p
+against each other).  Then drives eight 1080p
 CompressSessions on seeded clips of textured content:
 
   * slice 1, --preset ultrafast --tune zerolatency --me esa --qp 26
@@ -40,6 +40,12 @@ CompressSessions on seeded clips of textured content:
     everything of the batched veryfast line but P partitions; the
     hierarchical search once per reference of each P anchor,
     deblock_apply once per I and P frame, the SAD and memc kernels never;
+  * measured, the default session with --psnr --ssim fed BGRA frames (the
+    RGB32 a VfW host hands over) and writing Matroska (9 frames: 1 IDR,
+    2 P, 6 B, per frame since it measures): the conversion on the card
+    (equal to the CPU's), end()'s PSNR and SSIM and one "frame=" log line
+    per frame, the file's SimpleBlocks read back against the AUs,
+    deblock_apply once per I and P frame;
 
 and checks each stream, its motion vectors and its reconstruction, and
 holds the SAD (both modes) and partition_refine_mc kernels against their
@@ -56,7 +62,12 @@ lines on 30 frames with the cut inside a window, which drains pending B
 frames as a tail, and veryfast also with --threads 1; the default
 session, --preset faster and slow, and --preset medium --threads 1 on
 that clip too, and --preset medium --tune zerolatency, also with --me
-esa, whose SAD launches are counted, on 8 frames with a cut at 5).
+esa, whose SAD launches are counted, on 8 frames with a cut at 5), and
+four lines that go through input conversion, a container and the
+telemetry (BGRA to Matroska with --psnr --ssim, NV12 to MP4, YUYV to FLV
+with --threads 4, RGB24 to AVI), whose files and end() stats must be
+equal.  Last, the command line (x264vfw_tpu_torch/cli.py) encodes a Y4M
+file to MP4 on the card, equal to a CompressSession's file.
 Each kernel's launch count is set to 0 just before a session and read
 just after it.  Prints one line per phase
 with its elapsed seconds; the last three lines are the card's name and
@@ -115,8 +126,16 @@ MED_FRAMES = 17          # 1 IDR; anchors 4 and 8 per frame while the DPB
 MED_TYPES = {"I": 1, "P": 4, "B": 12}
 MED_DPB = [1, 2, 3, 3]   # references of the P anchors 4, 8, 12 and 16
 MED_FLICKER = 4          # frames between the texture's turns
+MEAS_FRAMES = 9          # the measured default session: 1 I, 2 P, 6 B
+MEAS_TYPES = {"I": 1, "P": 2, "B": 6}
 M_FRAMES, M_CUT = 8, 5   # the card-vs-CPU clip of the per-frame medium
 #                          lines: a full DPB of 3 at frames 3 and 4
+# (command line, input format, container) of the card-vs-CPU lines that
+# hold conversion, muxers and telemetry
+SURFACE_LINES = (("--psnr --ssim", "bgra", "mkv"),
+                 (CMDLINE_VF + " --psnr", "nv12", "mp4"),
+                 ("--preset ultrafast --crf 23 --threads 4", "yuyv", "flv"),
+                 ("--preset superfast --crf 23", "rgb24", "avi"))
 DEV = "cuda"
 KERNELS = ("sad", "memc", "deblock")
 SESSION_SIZE = (1920, 1080)            # the main paths' geometry
@@ -254,6 +273,75 @@ def live_clip(w: int, h: int, frames: int, seed: int, cut_at: int,
         if i >= fade_from:
             y = (y * (1.0 - 0.04 * (i - fade_from + 1))).astype(np.uint8)
         out.append((y, u, v))
+    return out
+
+
+def to_bgra(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """I420 planes -> (H, W, 4) uint8 BGRA, alpha 255 (BT.601, TV range,
+    float numpy): the RGB32 frames a VfW host hands over."""
+    yy = 1.164 * (y.astype(np.float64) - 16)
+    cu = np.repeat(np.repeat(u.astype(np.float64) - 128, 2, 0), 2, 1)
+    cv = np.repeat(np.repeat(v.astype(np.float64) - 128, 2, 0), 2, 1)
+    r, g, b = (yy + 1.596 * cv, yy - 0.392 * cu - 0.813 * cv,
+               yy + 2.017 * cu)
+    out = np.full(y.shape + (4,), 255, np.uint8)
+    for i, c in enumerate((b, g, r)):
+        out[..., i] = np.clip(np.rint(c), 0, 255)
+    return out
+
+
+def as_format(fmt: str, frame):
+    """An I420 frame in another input layout of compress(): 'bgra',
+    'rgb24', 'nv12' (y, interleaved uv) or 'yuyv' (packed 4:2:2, chroma
+    rows doubled)."""
+    y, u, v = frame
+    if fmt == "bgra":
+        return to_bgra(y, u, v)
+    if fmt == "rgb24":
+        return np.ascontiguousarray(to_bgra(y, u, v)[..., 2::-1])
+    if fmt == "nv12":
+        return y, np.stack([u, v], -1).reshape(u.shape[0], -1)
+    if fmt == "yuyv":
+        packed = np.empty((y.shape[0], 2 * y.shape[1]), np.uint8)
+        packed[:, 0::4], packed[:, 2::4] = y[:, 0::2], y[:, 1::2]
+        packed[:, 1::4] = np.repeat(u, 2, 0)
+        packed[:, 3::4] = np.repeat(v, 2, 0)
+        return packed
+    raise ValueError(fmt)
+
+
+def ebml_children(buf: bytes, pos: int, end: int):
+    """(element ID bytes, data start, data end) of each EBML element in
+    buf[pos:end]; an element of unknown size runs to end."""
+    while pos < end:
+        n = 1
+        while not buf[pos] & (0x80 >> (n - 1)):
+            n += 1
+        eid, pos = buf[pos:pos + n], pos + n
+        m = 1
+        while not buf[pos] & (0x80 >> (m - 1)):
+            m += 1
+        size = int.from_bytes(buf[pos:pos + m], "big") & ((1 << 7 * m) - 1)
+        pos += m
+        if size == (1 << 7 * m) - 1:
+            size = end - pos
+        yield eid, pos, pos + size
+        pos += size
+
+
+def mkv_blocks(data: bytes) -> list:
+    """(keyframe, payload) of every SimpleBlock of a Matroska file's
+    clusters, in file order."""
+    out = []
+    for eid, a, b in ebml_children(data, 0, len(data)):
+        if eid != b"\x18\x53\x80\x67":                      # Segment
+            continue
+        for cid, ca, cb in ebml_children(data, a, b):
+            if cid != b"\x1f\x43\xb6\x75":                  # Cluster
+                continue
+            for bid, ba, bb in ebml_children(data, ca, cb):
+                if bid == b"\xa3":                          # SimpleBlock
+                    out.append((bool(data[ba + 3] & 0x80), data[ba + 4:bb]))
     return out
 
 
@@ -459,9 +547,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
+    from x264vfw_tpu_torch import api as api_mod
+    from x264vfw_tpu_torch import cli
     from x264vfw_tpu_torch.api import CompressSession
     from x264vfw_tpu_torch.bitstream import native_parse
-    from x264vfw_tpu_torch.bitstream.nal import split_annexb
+    from x264vfw_tpu_torch.bitstream.nal import iter_annexb_raw, split_annexb
     from x264vfw_tpu_torch.encode import device as dv
     from x264vfw_tpu_torch.encode import device_finalize as dfin
     from x264vfw_tpu_torch.encode.inter_partition import \
@@ -470,6 +560,7 @@ def main() -> int:
     from x264vfw_tpu_torch.ops.kernels import build
     from x264vfw_tpu_torch.ops.kernels import deblock as dbk
     from x264vfw_tpu_torch.ops.kernels import memc as memck
+    from x264vfw_tpu_torch.ops import csp
     from x264vfw_tpu_torch.ops.kernels import sad as sadk
 
     dev = torch.device(DEV)
@@ -1265,7 +1356,129 @@ def main() -> int:
               session_max_abs_err=med_err, card=repr(card))
         del anchors, out, recon, maps, one_ref
 
-        # ---- 11. card vs CPU on a small clip, every command line -----------
+        # ---- 11. the default session measured: BGRA in, Matroska out -------
+        t = time.time()
+        clip_r = [to_bgra(*f) for f in moving_clip(w, h, MEAS_FRAMES, seed=9)]
+        mkv = os.path.join(tmp, "measured.mkv")
+        sess = CompressSession(extra_cmdline="--psnr --ssim", device=DEV)
+        sess.begin(w, h, output=mkv)
+        enc = sess.encoder
+        check(sess._pipe is None and enc.measure and sess.mbtree is not None
+              and (enc.nref, enc.cfg.bframes) == (3, 3),
+              "a measuring default session runs per frame")
+        # the card's conversion of frame 0 against the CPU's, exact
+        conv = {d: csp.convert_to_i420("bgra", clip_r[0], device=d)
+                for d in dict.fromkeys((DEV, "cpu"))}
+        conv_err = max_diff([p.cpu() for p in conv[DEV]], conv["cpu"])
+        check(conv_err == 0, f"BGRA -> I420 card vs CPU: max |diff| "
+              f"{conv_err}")
+        # what compress() pays per frame (upload, convert, pull back), and
+        # the conversion alone on a frame already on the card
+        bgra_d = torch.as_tensor(clip_r[0], device=dev)
+        conv_ms = cuda_ms(lambda: api_mod._to_i420(clip_r[0], "bgra", dev), 5)
+        conv_dev_ms = cuda_ms(lambda: csp.convert_to_i420("bgra", bgra_d), 5)
+        # per frame type the host time of each encode call (each ends with
+        # its payload's pull), the host measurement per frame, the emitted
+        # AUs and the last P anchor's inputs and syntax tensors
+        meas_ms = {"I": [], "P": [], "B": [], "metrics": []}
+        emitted, anchors = [], []
+        plain = {"frame": enc.encode_frame, "b": enc._encode_b,
+                 "metrics": sess._frame_metrics, "emit": sess._emit,
+                 "p": dfin.encode_p_slots}
+
+        def host_timed(fn, kind):
+            def run(*a, **k):
+                t1 = time.time()
+                res = fn(*a, **k)
+                torch.cuda.synchronize()
+                meas_ms[kind(*a, **k)].append((time.time() - t1) * 1e3)
+                return res
+            return run
+
+        def keep_emit(outs, *a, **k):
+            emitted.extend(outs)
+            return plain["emit"](outs, *a, **k)
+
+        def keep_anchor(*a, **k):
+            res = plain["p"](*a, **k)
+            anchors.append((a, res[-1]))
+            return res
+
+        enc.encode_frame = host_timed(plain["frame"], lambda *a, force_idr=None,
+                                      **k: "I" if force_idr else "P")
+        enc._encode_b = host_timed(plain["b"], lambda *a, **k: "B")
+        sess._frame_metrics = host_timed(plain["metrics"],
+                                         lambda *a, **k: "metrics")
+        sess._emit = keep_emit
+        dfin.encode_p_slots = keep_anchor
+        try:
+            for m in mods.values():
+                m.LAUNCHES = 0
+            t1 = time.time()
+            outs = [sess.compress(frame, fmt="bgra") for frame in clip_r]
+            stats = sess.end()
+            torch.cuda.synchronize()
+            wall = time.time() - t1
+            launches_r = {k: m.LAUNCHES for k, m in mods.items()}
+        finally:
+            dfin.encode_p_slots = plain["p"]
+        types = "".join(it[3] for it in emitted)
+        check({k: types.count(k) for k in "IPB"} == MEAS_TYPES
+              and sorted(it[1] for it in emitted) == list(range(MEAS_FRAMES)),
+              f"measured frame types {types}, want {MEAS_TYPES}")
+        check(launches_r == {"sad": 0, "memc": 0,
+                             "deblock": MEAS_TYPES["I"] + MEAS_TYPES["P"]},
+              f"measured launches {launches_r}: want one deblock per I and P "
+              "frame and no SAD or memc")
+        frame_lines = [m for _, m in sess.log.history
+                       if m.startswith("frame=")]
+        check(set(stats.get("psnr", {})) == {"y", "u", "v", "global",
+                                              "global_all"}
+              and "ssim" in stats and len(frame_lines) == MEAS_FRAMES,
+              f"end() stats {sorted(stats)}, {len(frame_lines)} frame= lines")
+        check(stats["psnr"]["y"] > 30.0, f"luma PSNR {stats['psnr']}")
+        # the Matroska file: one SimpleBlock per AU, in decode order, its
+        # payload the AU without parameter sets, length-prefixed
+        with open(mkv, "rb") as fh:
+            blocks = mkv_blocks(fh.read())
+        want = [(it[2], b"".join(len(n).to_bytes(4, "big") + n
+                                 for n in iter_annexb_raw(it[0])
+                                 if n[0] & 0x1F not in (7, 8)))
+                for it in emitted]
+        check(len(blocks) == MEAS_FRAMES and blocks == want,
+              f"{len(blocks)} SimpleBlocks, equal to the AUs: "
+              f"{blocks == want}")
+        check(b"".join(outs) + stats["tail"] == b"".join(it[0]
+                                                        for it in emitted),
+              "the session returned the AUs it muxed")
+        # deblock on the last P anchor's own maps (AQ QPs, ref_idx)
+        (a_src, a_ry, _, _, a_qp, *_), out = anchors[-1]
+        maps = dv.loop_filter_maps(out, a_qp, enc.mbh, enc.mbw, False,
+                                   0, 0, enc.pps.chroma_qp_index_offset)
+        recon = [out[k].contiguous()
+                 for k in ("recon_y", "recon_u", "recon_v")]
+        meas_err = {"deblock": max_diff(dbk.deblock_apply(*recon, *maps),
+                                        dbk.deblock_apply_plain(*recon,
+                                                                *maps)),
+                    "bgra_to_i420": conv_err}
+        check(not any(meas_err.values()),
+              f"deblock vs plain on the measured anchor's maps: {meas_err}")
+        err["deblock"] = max(err["deblock"], meas_err["deblock"])
+        phase("session_1080p_measured", t, bytes=os.path.getsize(mkv),
+              wall_s=round(wall, 3), fps=round(MEAS_FRAMES / wall, 3),
+              types=types,
+              ms_per_frame={k: [round(x, 1) for x in v]
+                            for k, v in meas_ms.items() if k != "metrics"},
+              metrics_ms=[round(x, 1) for x in meas_ms["metrics"]],
+              convert_ms=round(conv_ms, 3),
+              convert_device_ms=round(conv_dev_ms, 3),
+              psnr={k: round(float(v), 3) for k, v in stats["psnr"].items()},
+              ssim=round(float(stats["ssim"]), 5), launches=launches_r,
+              mkv_blocks=len(blocks), session_max_abs_err=meas_err,
+              card=repr(card))
+        del anchors, out, recon, maps, conv, bgra_d
+
+        # ---- 12. card vs CPU on a small clip, every command line -----------
         t = time.time()
         small = moving_clip(*SMALL_SIZE, L3_FRAMES, seed=2, shift=HIER_SHIFT)
         live = live_clip(*SMALL_SIZE, 6, seed=5, cut_at=3, fade_from=4)
@@ -1328,11 +1541,54 @@ def main() -> int:
                                "deblock": M_FRAMES},
               f"{esa_cmd!r} launches {launches_esa}: want the SAD kernel "
               f"{esa_dpb} times per P frame, one deblock per frame")
+        # input formats, containers and telemetry: each line on the card and
+        # on the CPU; the container files and end()'s stats must be equal
+        for cmd, fmt, ext in SURFACE_LINES:
+            files, ends = {}, {}
+            for d in dict.fromkeys((DEV, "cpu")):
+                path = os.path.join(tmp, f"surface_{d}.{ext}")
+                s = CompressSession(extra_cmdline=cmd, device=d)
+                s.begin(*SMALL_SIZE, output=path)
+                for fr in live:
+                    s.compress(as_format(fmt, fr), fmt=fmt)
+                ends[d] = s.end()
+                with open(path, "rb") as fh:
+                    files[d] = fh.read()
+            check(files[DEV] == files["cpu"] and ends[DEV] == ends["cpu"]
+                  and len(files["cpu"]) > 0, f"card and CPU {ext} files or "
+                  f"end() stats differ for {cmd!r} ({fmt} in)")
+            check(("psnr" in ends["cpu"]) == ("--psnr" in cmd),
+                  f"{cmd!r} reports PSNR")
+            sizes[f"{cmd} ({fmt} -> {ext})"] = len(files["cpu"])
         phase("card_vs_cpu", t, bytes=list(sizes.values()),
               idrs=list(idrs.values()), identical=True,
               esa_launches=launches_esa)
 
-        # ---- 12. the record -------------------------------------------------
+        # ---- 13. the command line on the card ------------------------------
+        t = time.time()
+        y4m, out_cli = os.path.join(tmp, "in.y4m"), os.path.join(tmp, "cli.mp4")
+        clip_c = moving_clip(*SMALL_SIZE, 6, seed=12)
+        with open(y4m, "wb") as fh:
+            fh.write(f"YUV4MPEG2 W{SMALL_SIZE[0]} H{SMALL_SIZE[1]} F25:1 Ip "
+                     "A1:1 C420jpeg\n".encode())
+            for fr in clip_c:
+                fh.write(b"FRAME\n" + b"".join(p.tobytes() for p in fr))
+        rc = cli.main(["--preset", "ultrafast", "--frames", "4", "-o",
+                       out_cli, y4m], device=DEV)
+        check(rc == 0, f"the CLI returned {rc}")
+        out_sess = os.path.join(tmp, "session.mp4")
+        s = CompressSession(extra_cmdline="--preset ultrafast", device=DEV)
+        s.begin(*SMALL_SIZE, output=out_sess)
+        for fr in clip_c[:4]:
+            s.compress(fr)
+        s.end()
+        with open(out_cli, "rb") as a, open(out_sess, "rb") as b:
+            cli_bytes, sess_bytes = a.read(), b.read()
+        check(cli_bytes == sess_bytes and len(cli_bytes) > 0,
+              "the CLI's .mp4 equals a CompressSession's from the same frames")
+        phase("cli", t, bytes=len(cli_bytes), identical=True)
+
+        # ---- 14. the record -------------------------------------------------
         meta = {
             "sad": ("csrc/sad.cu", "x264vfw_tpu/ops/pallas/sad.py:239"),
             "memc": ("csrc/memc.cu", "x264vfw_tpu/ops/pallas/memc.py:253"),
@@ -1357,6 +1613,7 @@ def main() -> int:
                 "l3_launches": launches3[k], "l4_launches": launches4[k],
                 "medium_launches": launches_m[k],
                 "medium_esa_launches": launches_esa[k],
+                "measured_launches": launches_r[k],
                 "build_s": build_s[k], "ptxas": ptxas_report(k),
                 "shape": [H, W, R], "card": card}
             if k == "sad":

@@ -12,8 +12,11 @@ session with B frames and MB-tree (1 I, 7 P, 19 B) with its kernels held
 against their plain versions on a P anchor's inputs, the default
 session (x264's --preset medium: three references, trellis; 1 I, 4 P,
 12 B) with the SAD and deblock kernels held against their plain versions
-on its last anchor's DPB and maps, and card against CPU for all fifteen
-command lines.
+on its last anchor's DPB and maps, the measured default session (--psnr
+--ssim, BGRA in, Matroska out; 1 I, 2 P, 6 B) with its SimpleBlocks read
+back and deblock held against its plain version, card against CPU for
+all fifteen command lines and the four lines of conversion, containers
+and telemetry, and the command line.
 Also: without a card the script exits non-zero and prints no result.
 """
 
@@ -147,11 +150,14 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     # frame (1, 2, 3, 3, then 1, 2 after the cut)
     assert [k["medium_launches"] for k in kern] == [0, 0, 5]
     assert [k["medium_esa_launches"] for k in kern] == [12, 0, 8]
+    # the measured default session: one deblock per I and P frame
+    assert [k["measured_launches"] for k in kern] == [0, 0, 3]
     phases = {ln.split("] ")[1].split(":")[0] for ln in lines
               if ln.startswith("[")}
     assert {"session_1080p_ultrafast_crf23", "session_1080p_hier_qpel_deblock",
             "session_1080p_veryfast", "session_1080p_veryfast_batched",
-            "session_1080p_medium", "card_vs_cpu"} <= phases
+            "session_1080p_medium", "session_1080p_measured", "card_vs_cpu",
+            "cli"} <= phases
     assert kern[2]["launches_per_frame"] == 1
     assert kern[0]["slice1_launches"] == 3
     H, W, R = kern[0]["shape"]     # one VABSDIFF4 per 4 byte differences

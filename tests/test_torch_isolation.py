@@ -7,9 +7,10 @@
 * No file of x264vfw_tpu_torch/, nor chip_smoke.py, names the tools/
   directory, whose C sources and libraries are the JAX package's: the
   port builds its own copies (csrc/host/) into its _build/.
-* Options outside the ported slices raise NotImplementedError naming the
-  ROADMAP instead of encoding something else; a session the JAX package
-  would batch runs through the port's BatchPipeline.
+* Options once refused now run (the two refusal tests keep their names:
+  --threads > 1, --psnr/--ssim and every container); a session the JAX
+  package would batch on one device runs through the port's
+  BatchPipeline.
 """
 
 import ast
@@ -85,15 +86,29 @@ def test_encoder_and_state_without_cuda_raise(no_cuda):
         state_from_numpy(z, z[:8, :8], z[:8, :8], frame_idx=1)
 
 
+@pytest.mark.parametrize("base", ["", "--preset ultrafast --tune "
+                                  "zerolatency --me esa"],
+                         ids=["default", "zerolatency"])
 @pytest.mark.parametrize("extra", ["--threads 2", "--psnr", "--ssim"])
-def test_out_of_slice_options_raise(extra):
-    """Options the port cannot encode raise: --threads > 1 (the multi-
-    device path) and --psnr/--ssim, on the batched path, which the
-    default session takes."""
+def test_out_of_slice_options_raise(extra, base):
+    """Refused before this slice (the name is kept from then): --threads >
+    1 and --psnr/--ssim begin and encode a frame.  --threads 2 batches the
+    default session (one device: the JAX package's one-device route) and
+    keeps a zero-latency one per frame; a measuring session runs per frame
+    either way and reports its stat in end()."""
     from x264vfw_tpu_torch.api import CompressSession
-    s = CompressSession(extra_cmdline=extra, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.begin(64, 48)
+    s = CompressSession(extra_cmdline=(base + " " + extra).strip(),
+                        device="cpu")
+    s.begin(32, 32)
+    assert (s._pipe is not None) == (extra == "--threads 2" and base == "")
+    assert s.encoder.measure == (extra != "--threads 2")
+    au = s.compress((np.full((32, 32), 90, np.uint8),
+                     np.full((16, 16), 128, np.uint8),
+                     np.full((16, 16), 128, np.uint8)))
+    end = s.end()
+    assert (au or end["tail"]) and end["frames"] == 1
+    stat = extra.strip("-")
+    assert (stat in end) == (stat != "threads 2")
 
 
 @pytest.mark.parametrize("extra", ["", "--ref 2", "--trellis 1"])
@@ -165,11 +180,17 @@ def test_out_of_slice_options_now_run(extra):
         2 if "--bframes" in extra else 0, "--mbtree" in extra)
 
 
-def test_other_containers_raise():
+@pytest.mark.parametrize("ext,muxer", [("264", "RawMuxer"),
+                                       ("mkv", "MkvMuxer"),
+                                       ("mp4", "Mp4Muxer"),
+                                       ("flv", "FlvMuxer"),
+                                       ("avi", "AviMuxer")])
+def test_other_containers_raise(ext, muxer):
+    """Refused before this slice but for raw Annex-B (the name is kept from
+    then): the extension picks the muxer, as in the JAX package."""
     from x264vfw_tpu_torch.output.base import select_muxer
-    assert type(select_muxer("out.264")).__name__ == "RawMuxer"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        select_muxer("out.mp4")
+    assert type(select_muxer(f"out.{ext}")).__name__ == muxer
+    assert type(select_muxer("out", ext)).__name__ == muxer
 
 
 @pytest.mark.parametrize("extra,batched", [("", True),

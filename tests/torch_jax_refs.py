@@ -2,8 +2,10 @@
 (slice 1, slice 2, the live veryfast/superfast lines with the I4x4 I
 frame, the AQ/t8 P cores and the converted-state case, L3, L4, the
 cores, finalisation, deblock and packing cases of the older test files,
-the B-frame lines with the B cores and MB-tree's P cores, and the single
-JAX calls of the SAD, search, partition, CAVLC and map tests).
+the B-frame lines with the B cores and MB-tree's P cores, the single
+JAX calls of the SAD, search, partition, CAVLC and map tests, and the
+--psnr/--ssim sessions, muxer input and CLI files of the session
+surface).
 
 tools/make_torch_jax_refs.py runs the JAX package on the tests' own inputs
 and writes its access units (and, for the converted-state tests, the
@@ -25,7 +27,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_DIR = os.path.join(ROOT, "tests", "jax_refs")
 NAMES = ("slice1", "slice2", "live", "l3", "l4", "core", "batched",
-         "calls", "multiref", "units")
+         "calls", "multiref", "units", "surface")
 SCRIPT = "tools/make_torch_jax_refs.py"
 
 

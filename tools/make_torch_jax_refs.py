@@ -76,7 +76,16 @@ source hash no longer matches.  Each file holds:
     trellis cases: _trellis_adjust at one QP (tr_scalar_<intra>, one row
     per QP 0..51) and per MB (tr_mb_<intra>), the thresholds (tr_lam,
     tr_lam4, tr_lam15) and the residual pipeline with trellis
-    (tr_pipe_<t8><decimate>_*).
+    (tr_pipe_<t8><decimate>_*);
+  * surface.npz (test_torch_telemetry.py, test_torch_muxers.py,
+    test_torch_cli.py): per line of the --psnr/--ssim sessions every
+    compress() return, the tail, end()'s kb/s, frame count, PSNR (y, u,
+    v, Avg, Global) and SSIM where measured, and the whole log
+    (<line>_out_<i>, <line>_tail, <line>_kbps, _frames, _psnr, _ssim,
+    _log); the B-frame line's access units as the session emitted them,
+    with their pts and keyframe flags (mux_au_<i>, mux_pts, mux_key); and
+    the files a CompressSession writes with each CLI case's options from
+    its frames (cli_<container>).
 
     JAX_PLATFORMS=cpu python tools/make_torch_jax_refs.py multiref
 
@@ -105,6 +114,7 @@ import test_torch_aq_t8 as tq  # noqa: E402
 import test_torch_batched_live as tbl  # noqa: E402
 import test_torch_bframes as tbf  # noqa: E402
 import test_torch_cavlc_pack as tcp  # noqa: E402
+import test_torch_cli as tcli  # noqa: E402
 import test_torch_deblock as tdb  # noqa: E402
 import test_torch_encode_core as tec  # noqa: E402
 import test_torch_hier as th  # noqa: E402
@@ -116,11 +126,13 @@ import test_torch_multiref as tmr  # noqa: E402
 import test_torch_partitions as tp  # noqa: E402
 import test_torch_pipeline as tpl  # noqa: E402
 import test_torch_session as ts  # noqa: E402
+import test_torch_telemetry as ttm  # noqa: E402
 import test_torch_transform as ttf  # noqa: E402
 import test_torch_trellis as ttr  # noqa: E402
 import torch_jax_refs as refs  # noqa: E402
 from x264vfw_tpu.api import CompressSession  # noqa: E402
 from x264vfw_tpu.bitstream import cavlc_jax  # noqa: E402
+from x264vfw_tpu.config.options import parse_cmdline  # noqa: E402
 from x264vfw_tpu.encode import device as jdev  # noqa: E402
 from x264vfw_tpu.encode import device_finalize as jfin  # noqa: E402
 from x264vfw_tpu.encode.device_pack import pack_slots as jpack  # noqa: E402
@@ -558,6 +570,41 @@ def units_refs(digest) -> dict:
     return out
 
 
+def surface_refs(digest) -> dict:
+    """The --psnr/--ssim sessions of test_torch_telemetry.LINES, the
+    B-frame line's access units for test_torch_muxers.py, and the files
+    of test_torch_cli.CLI_CASES."""
+    import tempfile
+    out = {"source_sha256": digest}
+    for name, (cmd, _, _) in ttm.LINES.items():
+        s = CompressSession(extra_cmdline=cmd)
+        items = []
+        emit = s._emit
+
+        def keep(outs, *a, _emit=emit, **k):
+            outs = list(outs)
+            items.extend(outs)
+            return _emit(outs, *a, **k)
+
+        s._emit = keep
+        outs, stats = ttm.run(s, ttm.clip(name))
+        put_aus(out, f"{name}_out", outs)
+        out[f"{name}_tail"] = np.frombuffer(stats["tail"], np.uint8)
+        for k, v in ttm.stats_arrays(stats).items():
+            out[f"{name}_{k}"] = v
+        out[f"{name}_log"] = np.array([m for _, m in s.log.history])
+        if name == "b":
+            put_aus(out, "mux_au", [it[0] for it in items])
+            out["mux_pts"] = np.array([it[1] for it in items], np.int64)
+            out["mux_key"] = np.array([it[2] for it in items], bool)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in tcli.CLI_CASES:
+            out[f"cli_{name}"] = np.frombuffer(tcli.session_file(
+                CompressSession, parse_cmdline, name,
+                os.path.join(tmp, f"out.{name}")), np.uint8)
+    return out
+
+
 MULTIREF_PARTS = {"units": multiref_units, "converted": multiref_converted,
                   **{name: (lambda name=name: multiref_session(name))
                      for name in tmr.LINES}}
@@ -572,7 +619,8 @@ def multiref_refs(digest) -> dict:
 
 MAKERS = {"live": live_refs, "l3": l3_refs, "l4": l4_refs,
           "core": core_refs, "batched": batched_refs, "calls": calls_refs,
-          "multiref": multiref_refs, "units": units_refs}
+          "multiref": multiref_refs, "units": units_refs,
+          "surface": surface_refs}
 
 
 def main() -> int:

@@ -9,10 +9,12 @@ nvcc at first use and bound with ctypes); the host CABAC passes are C
 device unless the caller passes device="cpu", where each kernel's plain
 PyTorch version takes its place.
 
-Ported so far: x264's --preset ultrafast (per frame and batched) and the
-per-frame --preset veryfast / superfast --tune zerolatency lines (CABAC,
-I4x4, the 8x8 transform, AQ, weighted P, scene cuts); ROADMAP.md lists
-the rest.
+Ported so far: the whole compress side: CompressSession with x264's
+presets from ultrafast to slow (per frame and batched), every input
+colourspace, --psnr/--ssim, the raw, Matroska, MP4, FLV and AVI muxers,
+--threads N on one card, config persistence and the command line
+(python -m x264vfw_tpu_torch.cli); ROADMAP.md lists the rest (the
+decoder, multi-device GOP sharding).
 """
 
 __version__ = "0.1.0"

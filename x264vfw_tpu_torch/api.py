@@ -23,17 +23,27 @@ slice), the 8x8 transform, AQ, trellis (--trellis 1 and 2 alike),
 weighted P prediction, scene cuts and MB-tree (--mbtree,
 --rc-lookahead): x264's --preset ultrafast to slow, with or without
 --tune zerolatency, CompressSession() with no options (x264's --preset
-medium) among them.  A zero-latency session (no B frames, no MB-tree,
---tune zerolatency) or one with --threads 1 encodes frame by frame; any
-other goes through the batched pipeline (encode/pipeline.py, windows of
-12 frames), as in the JAX package.  Options outside it (--threads > 1,
---psnr/--ssim) raise NotImplementedError naming the ROADMAP queue; the
-session never encodes something other than what was asked.
+medium) among them.  compress() takes every input format of
+SUPPORTED_INPUT_FORMATS: anything but I420 is converted on the session's
+device (ops/csp.py).  The muxer follows the output's extension: raw
+Annex-B, Matroska, MP4, FLV or AVI (output/).
+
+A session owns one device, so it routes as the JAX package does when it
+sees one: a zero-latency session (no B frames, no MB-tree, --tune
+zerolatency), one with --threads 1 or one that measures (--psnr/--ssim
+at log level 2 or more) encodes frame by frame; any other, --threads N >
+1 among them, goes through the batched pipeline (encode/pipeline.py,
+windows of 12 frames).  Measuring, the session keeps each source frame
+until its AU comes out, then logs its PSNR/SSIM against the encoder's
+reconstruction and sums them for end().
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import numpy as np
+import torch
 
 from .bitstream.nal import iter_annexb_raw, START_CODE_LONG
 from .config.params import EncoderParams
@@ -45,8 +55,9 @@ from .output.base import MuxParams, Muxer, select_muxer
 from .utils.device import resolve_device
 from .utils.logging import Logger
 
-#: input formats compress() takes (colourspace conversion is not ported)
-SUPPORTED_INPUT_FORMATS = ("i420",)
+#: input formats compress() takes
+SUPPORTED_INPUT_FORMATS = ("i420", "yv12", "nv12", "nv21", "yuyv", "uyvy",
+                           "rgb24", "bgr24", "bgra", "rgba")
 
 # x264-compatible colour signaling name -> H.273 code tables
 _COLORPRIM = {"bt709": 1, "undef": 2, "bt470m": 4, "bt470bg": 5,
@@ -79,14 +90,6 @@ def _p_partitions(p: EncoderParams) -> bool:
     entry turns on the 8x8-grid split, as in the JAX package)."""
     return "none" not in p.partitions and any(
         k in p.partitions for k in ("p8x8", "p4x4"))
-
-
-def _out_of_slice(p: EncoderParams) -> list[str]:
-    """Requested options this port cannot encode yet."""
-    return [name for name, on in (
-        ("--threads > 1 (multi-device)", p.threads > 1),
-        ("--psnr/--ssim", bool(p.psnr or p.ssim)),
-    ) if on]
 
 
 class CompressSession:
@@ -125,10 +128,6 @@ class CompressSession:
         p.validate()
         if not self.query(width, height):
             raise ValueError(f"unsupported geometry {width}x{height}")
-        missing = _out_of_slice(p)
-        if missing:
-            raise NotImplementedError(
-                f"not ported yet: {', '.join(missing)} (ROADMAP.md, queue A)")
         self.rc = RateController(p)
         qp = self.rc.qp_for_frame(True)
         bframes = min(p.bframes, 16)
@@ -179,6 +178,17 @@ class CompressSession:
         ), device=self.device)
         self._encode_idx = 0
         self._delay = 1 if bframes else 0
+        # PSNR/SSIM telemetry: as in the reference, measured only with the
+        # flags AND log level >= info (codec.c:1558-1559); it pulls each
+        # frame's recon to the host, so the session runs per frame
+        self._measure = bool((p.psnr or p.ssim) and p.log_level >= 2)
+        self.encoder.measure = self._measure
+        self._src_q: dict[int, tuple] = {}
+        self._disp_idx = 0
+        self._mse_sum = {"y": 0.0, "u": 0.0, "v": 0.0}
+        self._psnr_sum = {"y": 0.0, "u": 0.0, "v": 0.0, "global": 0.0}
+        self._ssim_sum = 0.0
+        self._measured = 0
         # MB-tree (--mbtree, --rc-lookahead): holds rc_lookahead display-
         # order frames back and attaches per-MB QP offsets to each
         self.mbtree = None
@@ -188,12 +198,13 @@ class CompressSession:
                                  lookahead=min(p.rc_lookahead, 60),
                                  qcomp=p.qcomp)
         # the batched pipeline unless the session is zero-latency (no B
-        # frames, no MB-tree, --tune zerolatency's sync_lookahead 0) or
-        # --threads 1, which keep the per-frame path (--threads > 1 and
-        # --psnr/--ssim are refused above)
+        # frames, no MB-tree, --tune zerolatency's sync_lookahead 0),
+        # --threads 1 or measuring, which keep the per-frame path; one
+        # device, so --threads N > 1 batches (the JAX package shards GOPs
+        # only over several devices)
         zero_latency = (p.bframes == 0 and not p.mbtree
                         and p.sync_lookahead == 0)
-        if p.threads != 1 and not zero_latency:
+        if not self._measure and p.threads != 1 and not zero_latency:
             from .encode.pipeline import BatchPipeline
             self._pipe = BatchPipeline(self.encoder, self.rc,
                                        mbtree=self.mbtree, window=12)
@@ -213,7 +224,9 @@ class CompressSession:
 
     # ---------------------------------------------------------- compress
     def compress(self, frame, fmt: str = "i420") -> bytes:
-        """frame: (y, u, v) uint8 planes.  Returns the Annex-B access units
+        """frame: (y, u, v) uint8 planes for I420 and YV12 (y, v, u), (y,
+        uv) for NV12/NV21, a packed (H, 2W) array for YUYV/UYVY, an (H, W,
+        C) array for the RGB formats.  Returns the Annex-B access units
         emitted for this input, in decode order: on the per-frame path one
         per frame, or with B frames b"" while a frame waits for its anchor
         (and while MB-tree fills its lookahead); on the batched path b""
@@ -223,13 +236,9 @@ class CompressSession:
             raise RuntimeError("encoder in error state")
         if self.encoder is None:
             raise RuntimeError("begin() not called")
-        if fmt.lower() != "i420":
-            raise NotImplementedError(
-                f"input format {fmt} needs colourspace conversion, which "
-                "is not ported yet (ROADMAP.md, queue A)")
         if self._pipe is not None:
             try:
-                outs = self._pipe.push(*frame)
+                outs = self._pipe.push(*_to_i420(frame, fmt, self.device))
             except Exception:
                 self.error = True
                 raise
@@ -237,7 +246,10 @@ class CompressSession:
             return self._emit(outs)
         qps = {t: self.rc.qp_for_type(t) for t in "IPB"}
         try:
-            y, u, v = frame
+            y, u, v = _to_i420(frame, fmt, self.device)
+            if self._measure:
+                self._src_q[self._disp_idx] = (y, u, v)
+            self._disp_idx += 1
             if self.mbtree is not None:
                 outs = []
                 for (fy, fu, fv), off in self.mbtree.push((y, u, v), y):
@@ -273,6 +285,8 @@ class CompressSession:
                       + au)
             if not rc_done:
                 self.rc.update(ftype, qp, len(au) * 8)
+            if self._measure:
+                self._frame_metrics(pts, ftype, qp, len(au) * 8)
             if pts > self._largest:
                 self._second = self._largest
                 self._largest = pts
@@ -287,6 +301,35 @@ class CompressSession:
             self._encode_idx += 1
             result += au
         return result
+
+    def _frame_metrics(self, pts: int, ftype: str, qp: int,
+                       bits: int) -> None:
+        """Per-frame PSNR/SSIM telemetry (the reference's b_psnr/b_ssim
+        measurement plus x264's per-frame log line, codec.c:1555-1559),
+        float64 numpy on the host."""
+        src = self._src_q.pop(pts, None)
+        rec = self.encoder.pop_recon(pts)
+        if src is None or rec is None:
+            return
+        from .utils.metrics import frame_psnr_yuv, ssim
+        p = self.params
+        line = f"frame={pts:4d} type={ftype} qp={qp} bits={bits}"
+        if p.psnr:
+            ps = frame_psnr_yuv(src, rec)
+            for name, s, r in zip("yuv", src, rec):
+                s64 = np.asarray(s, np.float64)
+                self._mse_sum[name] += ((s64 - np.asarray(r, np.float64))
+                                        ** 2).mean()
+            for k in ("y", "u", "v", "global"):
+                self._psnr_sum[k] += ps[k]
+            line += (f" psnr_y={ps['y']:.2f} psnr_u={ps['u']:.2f}"
+                     f" psnr_v={ps['v']:.2f}")
+        if p.ssim:
+            sv = ssim(src[0], rec[0])
+            self._ssim_sum += sv
+            line += f" ssim_y={sv:.5f}"
+        self._measured += 1
+        self.log.info(line)
 
     # --------------------------------------------------------------- end
     def end(self) -> dict:
@@ -319,6 +362,24 @@ class CompressSession:
             "kbps": self._bits_total / 1000.0 / dur if dur else 0.0,
             "tail": tail,
         }
+        if getattr(self, "_measured", 0):
+            m = self._measured
+            if p.psnr:
+                # Mean = average of per-frame PSNR; Global = PSNR of the
+                # average MSE (x264's end-of-encode PSNR report shape)
+                mean = {k: self._psnr_sum[k] / m
+                        for k in ("y", "u", "v", "global")}
+                gm = (4 * self._mse_sum["y"] + self._mse_sum["u"]
+                      + self._mse_sum["v"]) / (6 * m)
+                glob = 99.0 if gm == 0 else float(10 * np.log10(255 ** 2 / gm))
+                stats["psnr"] = {**mean, "global_all": glob}
+                self.log.info(
+                    f"PSNR Mean Y:{mean['y']:.3f} U:{mean['u']:.3f} "
+                    f"V:{mean['v']:.3f} Avg:{mean['global']:.3f} "
+                    f"Global:{glob:.3f}")
+            if p.ssim:
+                stats["ssim"] = self._ssim_sum / m
+                self.log.info(f"SSIM Mean Y:{stats['ssim']:.7f}")
         if self.frame_count:
             self.log.info(f"encoded {self.frame_count} frames, "
                           f"{stats['kbps']:.2f} kb/s")
@@ -333,6 +394,17 @@ class CompressSession:
                 if p.mbtree and p.rc_lookahead > 0 else 0)
         win = 0 if self._pipe is None else 2 * self._pipe.window - 1
         return FramesInfo(delay=min(p.bframes, 16) + look + win)
+
+
+def _to_i420(frame, fmt: str, device):
+    """An input frame as (y, u, v) uint8 host planes: I420 as it comes,
+    any other format converted on the session's device (ops/csp.py)."""
+    fmt = fmt.lower()
+    if fmt == "i420":
+        return frame
+    from .ops import csp
+    return tuple(p.to(torch.uint8).cpu().numpy()
+                 for p in csp.convert_to_i420(fmt, frame, device=device))
 
 
 def _strip_parameter_sets(au: bytes) -> tuple[bytes, bool]:

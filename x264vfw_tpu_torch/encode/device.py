@@ -839,7 +839,8 @@ def encode_b_frame_core(src_y, src_u, src_v, ref0_y, ref0_u, ref0_v,
                         ref1_y, ref1_u, ref1_v, mvcol, qp: int, qpc: int,
                         rng: int = 8, subpel: int = 0,
                         me_backend: str = "auto", decimate: bool = True,
-                        dct8x8: bool = False, trellis: bool = False):
+                        dct8x8: bool = False, trellis: bool = False,
+                        want_recon: bool = False):
     """B-frame encode: independent L0 and L1 motion searches (each one
     _motion_search_and_mc), the per-MB {L0, L1, Bi} decision (default
     bi-prediction, (p0 + p1 + 1) >> 1, §8.4.2.3.1), then a second phase
@@ -853,8 +854,9 @@ def encode_b_frame_core(src_y, src_u, src_v, ref0_y, ref0_u, ref0_v,
     or for an anchor with partitions the per-component max |mv| over the
     MB's four 8x8 quadrants.  An MB is colZero when both components are
     <= 1 in magnitude, a conservative colZeroFlag (the decoder derives
-    it per block).  B frames are non-reference (no B-pyramid), so no
-    recon is computed.
+    it per block).  B frames are non-reference (no B-pyramid), so the
+    recon is computed only with want_recon, for the PSNR/SSIM telemetry:
+    'recon_y', 'recon_u', 'recon_v', decoder-exact and not deblocked.
     Returns 'mode' (n,) 0 = direct, 1 = L0, 2 = L1, 3 = Bi; 'mv0', 'mv1'
     (n, 2) quarter-pel; 'uses0', 'uses1' (n,) the final list usage as
     the decoder sees it; the residual syntax tensors; and 't8' with
@@ -917,7 +919,7 @@ def encode_b_frame_core(src_y, src_u, src_v, ref0_y, ref0_u, ref0_v,
     pred = mbize(select(16, diy, p0y, p1y, biy, ref0_y, ref1_y))
     pred_u = mbize(select(8, diu, p0u, p1u, biu, ref0_u, ref1_u), 8)
     pred_v = mbize(select(8, div, p0v, p1v, biv, ref0_v, ref1_v), 8)
-    levels, _, t8_flag = _luma_residual_pipeline(
+    levels, recon_res, t8_flag = _luma_residual_pipeline(
         src_mbs, pred, qp, intra=False, decimate=decimate, trellis=trellis,
         t8=dct8x8)
     cbp_q = (levels != 0).any(dim=-1).reshape(n, 4, 4).any(dim=-1)
@@ -948,6 +950,20 @@ def encode_b_frame_core(src_y, src_u, src_v, ref0_y, ref0_u, ref0_v,
     }
     if t8_flag is not None:
         out["t8"] = t8_flag
+    if want_recon:
+        # the P path's cbp masking: uncoded quadrants add no residual
+        keep = cbp_q.repeat_interleave(4, dim=-1)
+        res_mb = blocks_to_mb(mb_to_blocks(recon_res)
+                              * keep[:, :, None, None])
+        use_dc = cbp_chroma >= 1
+        use_ac = cbp_chroma == 2
+        out["recon_y"] = unmbize((pred + res_mb).clamp(0, 255), H, W)
+        out["recon_u"] = unmbize(_chroma_recon(pred_u, dc_u, ac_u, qpc,
+                                               use_dc, use_ac),
+                                 H // 2, W // 2, 8)
+        out["recon_v"] = unmbize(_chroma_recon(pred_v, dc_v, ac_v, qpc,
+                                               use_dc, use_ac),
+                                 H // 2, W // 2, 8)
     return out
 
 

@@ -631,21 +631,27 @@ def encode_pgop_slots(frames_yuv, ref_y, ref_u, ref_v, qps, qpcs,
 def encode_b_slots(src_yuv, ref0_y, ref0_u, ref0_v, ref1_y, ref1_u, ref1_v,
                    mvcol, qp: int, qpc: int, hdr_vals, hdr_lens, rng: int,
                    subpel: int = 0, me_backend: str = "auto",
-                   dct8x8: bool = False):
+                   dct8x8: bool = False, want_recon: bool = False):
     """Fused B-frame phase 1: unpack the uint8 frame -> B encode between
     the two anchors (any integer dtype, the values 0..255) -> slot rows.
     mvcol: (n, 2) the later anchor's colocated field.  B frames are
-    non-reference: no recon.  As in the JAX package, whose B programs take
-    no trellis, they are quantised without it.  Returns (slot_vals,
-    slot_lens)."""
+    non-reference: the recon is computed only with want_recon (the
+    session's PSNR/SSIM telemetry).  As in the JAX package, whose B
+    programs take no trellis, they are quantised without it.  Returns
+    (slot_vals, slot_lens), and with want_recon also recon_y, recon_u,
+    recon_v (int32, not deblocked)."""
     from .device import encode_b_frame_core
     H, W = ref0_y.shape
     refs = [p.to(torch.int32) for p in (ref0_y, ref0_u, ref0_v, ref1_y,
                                         ref1_u, ref1_v)]
     out = encode_b_frame_core(*_unpack_src(src_yuv, H, W), *refs, mvcol, qp,
-                              qpc, rng, subpel, me_backend, dct8x8=dct8x8)
-    return _finalize_b_core(out, hdr_vals, hdr_lens, H // 16, W // 16,
+                              qpc, rng, subpel, me_backend, dct8x8=dct8x8,
+                              want_recon=want_recon)
+    v, l = _finalize_b_core(out, hdr_vals, hdr_lens, H // 16, W // 16,
                             t8_mode=dct8x8)
+    if want_recon:
+        return v, l, out["recon_y"], out["recon_u"], out["recon_v"]
+    return v, l
 
 
 def encode_bgop_slots(rows, refs0, refs1, mvcols, qps, qpcs, hdr_vals,

@@ -20,7 +20,10 @@ drives the same object: it reads and writes display_idx, _last_idr_d,
 poc_base, poc, qp, frame_num, frame_idx, dpb and _cur_nref, writes slice
 headers with _slice_header_codes, uploads a run of frames with
 pack_batch_rows and encodes IDRs, the anchors that fill the DPB, tail
-anchors and tail B frames with encode_frame and _encode_b.
+anchors and tail B frames with encode_frame and _encode_b.  With measure
+on (the session's --psnr/--ssim) each frame's recon, a B frame's from
+encode_b_slots(want_recon=True), stays on the device per display index
+until the session takes it with pop_recon.
 
 Header conventions (SPS profile/level/DPB size, PPS, slice headers,
 version SEI) are the JAX package's, byte for byte.
@@ -120,6 +123,29 @@ class TorchEncoder:
         self.qp = cfg.qp
         self.qpc = int(tables.chroma_qp(cfg.qp, self.pps.chroma_qp_index_offset))
         self._i_full = None            # I-frame phase 1 for this geometry
+        # PSNR/SSIM telemetry (the reference's b_psnr/b_ssim, codec.c:
+        # 1558-1559): with measure on, each frame's recon is kept on the
+        # device per display index until the session pops it; off, no
+        # pixel leaves the device
+        self.measure = False
+        self._recon_q: dict[int, tuple] = {}
+        self._last_b_recon: tuple | None = None
+
+    # -- telemetry hooks (PSNR/SSIM): recon per display index -------------
+    def _stash_recon(self, d: int, planes: tuple | None = None) -> None:
+        if self.measure:
+            self._recon_q[d] = planes if planes is not None else self.ref
+
+    def pop_recon(self, d: int) -> tuple | None:
+        """Reconstruction of display frame d, cropped to the configured
+        geometry (host copy).  None when telemetry is off or it was not
+        kept."""
+        planes = self._recon_q.pop(d, None)
+        if planes is None:
+            return None
+        w, h = self.cfg.width, self.cfg.height
+        y, u, v = (p.cpu().numpy() for p in planes)
+        return y[:h, :w], u[:h // 2, :w // 2], v[:h // 2, :w // 2]
 
     # ------------------------------------------------------------------
     @property
@@ -201,6 +227,7 @@ class TorchEncoder:
             au = self.encode_frame(y, u, v, qp=qp_i if is_idr else qp_p,
                                    force_idr=is_idr,
                                    qp_off=None if is_idr else qp_off)
+            self._stash_recon(d)
             return [(au, d, "I" if is_idr else "P")]
         out: list[tuple[bytes, int, str]] = []
         if is_idr:
@@ -209,6 +236,7 @@ class TorchEncoder:
             self.poc = 0
             out.append((self.encode_frame(y, u, v, qp=qp_i, force_idr=True),
                         d, "I"))
+            self._stash_recon(d)
             return out
         if len(self.pending) < cfg.bframes:
             self.pending.append((y, u, v, d))
@@ -235,12 +263,14 @@ class TorchEncoder:
         self.poc = 2 * (pd - self.poc_base)
         out = [(self.encode_frame(py, pu, pv, qp=qp_p, force_idr=False,
                                   qp_off=qp_off), pd, "P")]
+        self._stash_recon(pd)
         mvcol = self.last_mv
         for (by, bu, bv, bd) in bs:
             out.append((self._encode_b(by, bu, bv, old_ref, self.ref, mvcol,
                                        2 * (bd - self.poc_base),
                                        qp_b if qp_b is not None else qp_p),
                         bd, "B"))
+            self._stash_recon(bd, self._last_b_recon)
         return out
 
     def _encode_b(self, y, u, v, ref0, ref1, mvcol, poc: int,
@@ -258,9 +288,11 @@ class TorchEncoder:
         src_d = torch.from_numpy(self.pack_batch_rows([(y, u, v)])[0]) \
             .to(self.device)
         hv, hl = self._header_slots(SLICE_B, NAL_SLICE, nal_ref_idc=0)
-        sv_, sl_ = device_finalize.encode_b_slots(
+        sv_, sl_, *rec = device_finalize.encode_b_slots(
             src_d, *ref0, *ref1, mvcol, self.qp, self.qpc, hv, hl,
-            cfg.search_range, cfg.subpel, cfg.me_backend, dct8x8=cfg.dct8x8)
+            cfg.search_range, cfg.subpel, cfg.me_backend, dct8x8=cfg.dct8x8,
+            want_recon=self.measure)
+        self._last_b_recon = tuple(rec) if self.measure else None
         data, nbits = device_finalize.pack_phase(sv_, sl_)
         payload = data[:(nbits + 7) // 8].cpu().numpy()
         if cfg.cabac:

@@ -67,11 +67,16 @@ class Muxer:
 
 def select_muxer(path: str, explicit: str | None = None) -> Muxer:
     """Extension-driven muxer selection (reference select_output,
-    reference codec.c:1111-1164).  The port writes raw Annex-B
-    only; the containers are queued in ROADMAP.md."""
+    codec.c:1111-1164), the JAX package's: raw Annex-B for .264, .h264,
+    .avc and any unknown extension."""
     from .raw import RawMuxer
-    key = (explicit or path.rsplit(".", 1)[-1]).lower()
-    if key in ("mkv", "flv", "mp4", "avi"):
-        raise NotImplementedError(
-            f"{key} muxer is not ported yet (ROADMAP.md, queue A)")
-    return RawMuxer()
+    from .mkv import MkvMuxer
+    from .flv import FlvMuxer
+    from .mp4 import Mp4Muxer
+    from .avi import AviMuxer
+    kinds = {"264": RawMuxer, "h264": RawMuxer, "avc": RawMuxer,
+             "mkv": MkvMuxer, "flv": FlvMuxer, "mp4": Mp4Muxer,
+             "avi": AviMuxer}
+    key = explicit or path.rsplit(".", 1)[-1].lower()
+    cls = kinds.get(key, RawMuxer)
+    return cls()
