@@ -66,7 +66,19 @@ esa, whose SAD launches are counted, on 8 frames with a cut at 5), and
 four lines that go through input conversion, a container and the
 telemetry (BGRA to Matroska with --psnr --ssim, NV12 to MP4, YUYV to FLV
 with --threads 4, RGB24 to AVI), whose files and end() stats must be
-equal.  Last, the command line (x264vfw_tpu_torch/cli.py) encodes a Y4M
+equal.  Then the decoder (phase decode_1080p): DecompressSession on the
+card reads back, access unit by access unit, slice 2's and L4's 1080p
+streams and a third one, x264's --preset faster --tune zerolatency
+--no-cabac --no-8x8dct --weightp 0 --qp 26 (1 IDR with I4x4 + 2 P, the
+last over two references); every picture takes the device route (the
+deblock kernel launches once per picture), every frame equals the
+encoder's reconstruction, and deblock_apply equals its plain version on
+the last picture's maps; then, at the small size, a card and a CPU
+DecompressSession give equal outputs on a CAVLC stream with I4x4 and
+three references in every output format, on the default session's
+CABAC + B stream (the host route) and on the NV12 line's MP4 samples
+with its avcC, and the scaler (to half the size) is within 1 of the
+CPU's.  Last, the command line (x264vfw_tpu_torch/cli.py) encodes a Y4M
 file to MP4 on the card, equal to a CompressSession's file.
 Each kernel's launch count is set to 0 just before a session and read
 just after it.  Prints one line per phase
@@ -128,6 +140,15 @@ MED_DPB = [1, 2, 3, 3]   # references of the P anchors 4, 8, 12 and 16
 MED_FLICKER = 4          # frames between the texture's turns
 MEAS_FRAMES = 9          # the measured default session: 1 I, 2 P, 6 B
 MEAS_TYPES = {"I": 1, "P": 2, "B": 6}
+# the decoder: x264's --preset faster --tune zerolatency on CAVLC (I4x4,
+# two references) at 1080p (1 IDR + 2 P); on the card-vs-CPU clip the
+# same with three references
+CMDLINE_DEC = ("--preset faster --tune zerolatency --no-cabac --no-8x8dct "
+               "--weightp 0 --qp 26")
+DEC_FRAMES = 3
+DEC_SMALL_FRAMES = 8
+DEC_DRAINS = 2            # decompress(b"") calls after the last AU
+SCALE_MAX_SHARE = 0.01    # samples the scaler may round the other way
 M_FRAMES, M_CUT = 8, 5   # the card-vs-CPU clip of the per-frame medium
 #                          lines: a full DPB of 3 at frames 3 and 4
 # (command line, input format, container) of the card-vs-CPU lines that
@@ -543,6 +564,56 @@ def deblock_case(mbh: int, mbw: int, seed: int, dev):
     return planes, [m.contiguous() for m in maps]
 
 
+def split_aus(stream: bytes) -> list:
+    """Annex-B access units of a stream of single-slice pictures: each
+    slice NAL with the NALs before it."""
+    from x264vfw_tpu_torch.bitstream.nal import START_CODE_LONG, \
+        iter_annexb_raw
+    aus, cur = [], b""
+    for nal in iter_annexb_raw(stream):
+        cur += START_CODE_LONG + nal
+        if nal[0] & 0x1F in (1, 5):
+            aus.append(cur)
+            cur = b""
+    return aus
+
+
+def mp4_samples(data: bytes):
+    """(avcC record, [sample bytes]) of a non-fragmented MP4 with one
+    track whose samples follow the mdat header in decode order (as the
+    port's MP4 muxer writes them)."""
+    def payload(tag: bytes) -> bytes:
+        at = data.index(tag)
+        size = int.from_bytes(data[at - 4:at], "big")
+        return data[at + 4:at - 4 + size]
+
+    stsz = payload(b"stsz")
+    count = int.from_bytes(stsz[8:12], "big")
+    pos = data.index(b"mdat") + 4
+    samples = []
+    for i in range(count):
+        n = int.from_bytes(stsz[12 + 4 * i:16 + 4 * i], "big")
+        samples.append(data[pos:pos + n])
+        pos += n
+    return payload(b"avcC"), samples
+
+
+def run_decoder(sess, aus: list, size, **begin) -> list:
+    """Every decompress() return for `aus`, then DEC_DRAINS calls with
+    b"", each as a tuple of arrays."""
+    sess.begin(*size, **begin)
+    outs = [sess.decompress(au) for au in aus]
+    outs += [sess.decompress(b"") for _ in range(DEC_DRAINS)]
+    sess.end()
+    return [o if isinstance(o, tuple) else (o,) for o in outs]
+
+
+def same_outputs(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        len(x) == len(y) and all(np.array_equal(p, q) for p, q in zip(x, y))
+        for x, y in zip(a, b))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -565,6 +636,9 @@ def main() -> int:
 
     dev = torch.device(DEV)
     mods = {"sad": sadk, "memc": memck, "deblock": dbk}
+    # per decode stream: its access units and the encoder's reconstruction
+    # of each frame (filled by the slice-2 and L4 phases)
+    dec_streams = {"slice2": ([], []), "l4": ([], [])}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         # ---- 1. device -------------------------------------------------
@@ -725,9 +799,13 @@ def main() -> int:
             for f, frame in enumerate(clip[:nfr]):
                 prev_ref = enc.ref
                 t1 = time.time()
-                stream += sess.compress(frame)
+                au = sess.compress(frame)
                 torch.cuda.synchronize()
                 frame_ms.append((time.time() - t1) * 1e3)
+                stream += au
+                # the AUs and reconstructions the decode phase reads back
+                dec_streams["slice2"][0].append(au)
+                dec_streams["slice2"][1].append(enc.last_recon)
                 psnrs.append(psnr(enc.last_recon[0], frame[0]))
                 if f:
                     mv8 = enc.last_mv8.cpu().numpy()
@@ -871,11 +949,13 @@ def main() -> int:
             t1 = time.time()
             if f == nfr4 - 1:
                 with ops:
-                    sess.compress(frame)
+                    au = sess.compress(frame)
             else:
-                sess.compress(frame)
+                au = sess.compress(frame)
             torch.cuda.synchronize()
             frame_ms.append((time.time() - t1) * 1e3)
+            dec_streams["l4"][0].append(au)
+            dec_streams["l4"][1].append(enc.last_recon)
             psnrs.append(psnr(enc.last_recon[0], frame[0]))
             if f:
                 mv_ok.append(interior_match(enc.last_mv, enc.mbh, enc.mbw,
@@ -1524,6 +1604,8 @@ def main() -> int:
                         m.LAUNCHES = 0
                 outs = [s.compress(fr) for fr in clip_s]
                 got[d] = (outs, s.end()["tail"], s.frames_info().delay)
+                if d == DEV and cmd == CMDLINE_MED:
+                    med_small = b"".join(outs) + got[d][1]
                 if d == DEV and cmd == esa_cmd:
                     launches_esa = {k: m.LAUNCHES for k, m in mods.items()}
             check(got[DEV] == got["cpu"], f"card and CPU outputs differ at "
@@ -1557,6 +1639,8 @@ def main() -> int:
             check(files[DEV] == files["cpu"] and ends[DEV] == ends["cpu"]
                   and len(files["cpu"]) > 0, f"card and CPU {ext} files or "
                   f"end() stats differ for {cmd!r} ({fmt} in)")
+            if ext == "mp4":
+                mp4_small = files[DEV]
             check(("psnr" in ends["cpu"]) == ("--psnr" in cmd),
                   f"{cmd!r} reports PSNR")
             sizes[f"{cmd} ({fmt} -> {ext})"] = len(files["cpu"])
@@ -1564,7 +1648,190 @@ def main() -> int:
               idrs=list(idrs.values()), identical=True,
               esa_launches=launches_esa)
 
-        # ---- 13. the command line on the card ------------------------------
+        # ---- 13. decode_1080p: the decoder on the card -------------------
+        t = time.time()
+        from x264vfw_tpu_torch.api import DecompressSession
+        from x264vfw_tpu_torch.decode import device_decode as ddec
+        # the third stream: I4x4 in the I frame, two references in the
+        # last P
+        clip_d = moving_clip(w, h, DEC_FRAMES, seed=6, texture=structured)
+        sess = CompressSession(extra_cmdline=CMDLINE_DEC, device=DEV)
+        sess.begin(w, h)
+        enc = sess.encoder
+        check((enc.cfg.i4x4, enc.cfg.cabac, enc.cfg.dct8x8, enc.cfg.deblock,
+               enc.nref) == (True, False, False, True, 2)
+              and sess._pipe is None, "the decode stream's options reach "
+              "the per-frame encoder")
+        dec_streams["faster_zl"] = ([], [])
+        for frame in clip_d:
+            dec_streams["faster_zl"][0].append(sess.compress(frame))
+            dec_streams["faster_zl"][1].append(enc.last_recon)
+        sess.end()
+        # per picture: the C parse, upload and pull on the host clock; the
+        # device span of decode_frame_core, the map build and the kernel
+        # between CUDA events
+        plain = {"parse": native_parse.parse_slice,
+                 "upload": ddec.upload_syntax, "pull": ddec.pull_planes,
+                 "core": ddec.decode_frame_core, "maps": ddec.build_maps,
+                 "kernel": dbk.deblock_apply}
+        cur, last_kernel = {}, []
+
+        def host_timed(key):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t1 = time.time()
+                res = plain[key](*a, **k)
+                torch.cuda.synchronize()
+                cur[key] = cur.get(key, 0.0) + (time.time() - t1) * 1e3
+                return res
+            return run
+
+        def device_timed(key):
+            def run(*a, **k):
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                res = plain[key](*a, **k)
+                ev[1].record()
+                cur.setdefault("events", []).append((key, ev))
+                if key == "core":
+                    cur["type"] = "P" if a[2] is not None else "I"
+                    cur["nref"] = 0 if a[2] is None else a[2].shape[0]
+                if key == "kernel":
+                    last_kernel[:] = [a]
+                return res
+            return run
+
+        native_parse.parse_slice = host_timed("parse")
+        ddec.upload_syntax = host_timed("upload")
+        ddec.pull_planes = host_timed("pull")
+        ddec.decode_frame_core = device_timed("core")
+        ddec.build_maps = device_timed("maps")
+        dbk.deblock_apply = device_timed("kernel")
+        dec_stats, dec_launches, dec_fps, i_ops = {}, {}, {}, None
+        try:
+            for name, (aus_d, recons) in dec_streams.items():
+                ds = DecompressSession(device=DEV)
+                ds.begin()
+                per = {"I": [], "P": []}
+                frames, wall = [], 0.0
+                dbk.LAUNCHES = 0
+                for au in aus_d:
+                    cur.clear()
+                    t1 = time.time()
+                    out = ds.decompress(au)
+                    torch.cuda.synchronize()
+                    ms = (time.time() - t1) * 1e3
+                    wall += ms
+                    if out is not None:
+                        frames.append(out)
+                    check("type" in cur, f"{name}: a picture left the "
+                          "device route")
+                    row = {"host": ms, "nref": cur["nref"],
+                           **{k: cur.get(k, 0.0)
+                              for k in ("parse", "upload", "pull")}}
+                    for key, (e0, e1) in cur["events"]:
+                        row[key] = row.get(key, 0.0) + e0.elapsed_time(e1)
+                    per[cur["type"]].append(row)
+                while (out := ds.decompress(b"")) is not None:
+                    frames.append(out)
+                dec_launches[name] = dbk.LAUNCHES
+                check(dec_launches[name] == len(aus_d),
+                      f"{name}: {dec_launches[name]} deblock launches for "
+                      f"{len(aus_d)} pictures: each picture must take the "
+                      "device route once")
+                check(len(frames) == len(aus_d) and all(
+                    all(np.array_equal(p, q) for p, q in zip(fr, rc))
+                    for fr, rc in zip(frames, recons)),
+                    f"{name}: the decoded frames equal the encoder's "
+                    "reconstructions")
+                dec_fps[name] = round(len(aus_d) / (wall / 1e3), 3)
+                dec_stats[name] = {
+                    k: {f: [round(r[f], 3) for r in v] for f in v[0]}
+                    for k, v in per.items() if v}
+            check(max(dec_stats["faster_zl"]["P"]["nref"]) == 2,
+                  "the last P of the decode stream reads two references")
+            # the I4x4 I frame's PyTorch operations on the card, counted
+            # apart (the counting slows the host)
+            ds = DecompressSession(device=DEV)
+            ds.begin()
+            ops = CudaOps()
+            with ops:
+                ds.decompress(dec_streams["faster_zl"][0][0])
+            i_ops = ops.n
+        finally:
+            native_parse.parse_slice = plain["parse"]
+            ddec.upload_syntax, ddec.pull_planes = plain["upload"], \
+                plain["pull"]
+            ddec.decode_frame_core = plain["core"]
+            ddec.build_maps, dbk.deblock_apply = plain["maps"], \
+                plain["kernel"]
+        # the kernel against its plain version on the last picture's maps
+        dec_err = max_diff(dbk.deblock_apply(*last_kernel[0]),
+                           dbk.deblock_apply_plain(*last_kernel[0]))
+        check(dec_err == 0, f"deblock vs plain on the decoded maps: max "
+              f"|diff| {dec_err}")
+        err["deblock"] = max(err["deblock"], dec_err)
+        del dec_streams, clip_d
+
+        # the second part: card against CPU at the small size, on a CAVLC
+        # I/P stream with I4x4 and three references (the device route), the
+        # default session's CABAC + B stream (the host route) and the MP4
+        # file of the NV12 line (avcC and length-prefixed samples)
+        s = CompressSession(extra_cmdline=CMDLINE_DEC + " --ref 3",
+                            device=DEV)
+        s.begin(*SMALL_SIZE)
+        ref3 = [s.compress(fr) for fr in moving_clip(
+            *SMALL_SIZE, DEC_SMALL_FRAMES, seed=16, texture=structured)]
+        s.end()
+        avcc, samples = mp4_samples(mp4_small)
+        cases = [("ref3", ref3, {"fmt": fmt})
+                 for fmt in DecompressSession.OUTPUT_FORMATS]
+        cases += [("cabac_b", split_aus(med_small), {}),
+                  ("mp4", samples, {"extradata": avcc})]
+        core = ddec.decode_frame_core
+        refs_seen = []
+
+        def count_refs(syn, kinds, luma, *a, **k):
+            refs_seen.append(0 if luma is None else luma.shape[0])
+            return core(syn, kinds, luma, *a, **k)
+
+        small = {}
+        for name, aus_s, kw in cases:
+            outs = {}
+            for d in dict.fromkeys((DEV, "cpu")):
+                refs_seen.clear()
+                ddec.decode_frame_core = count_refs
+                try:
+                    outs[d] = run_decoder(DecompressSession(device=d), aus_s,
+                                          SMALL_SIZE, **kw)
+                finally:
+                    ddec.decode_frame_core = core
+                if name == "ref3" and d == DEV:
+                    check(len(refs_seen) == DEC_SMALL_FRAMES
+                          and max(refs_seen) == 3, f"the --ref 3 stream on "
+                          f"the device route: references {refs_seen}")
+            check(same_outputs(outs[DEV], outs["cpu"]), f"card and CPU "
+                  f"decoders differ on {name} ({kw.get('fmt', 'i420')})")
+            small[f"{name}_{kw.get('fmt', 'i420')}"] = len(outs["cpu"])
+        # the scaler (128x96 to 64x48): within 1 of the CPU's
+        sw, sh = SMALL_SIZE[0] // 2, SMALL_SIZE[1] // 2
+        outs = {d: run_decoder(DecompressSession(device=d), ref3, SMALL_SIZE,
+                               out_width=sw, out_height=sh)
+                for d in dict.fromkeys((DEV, "cpu"))}
+        diffs = [np.abs(p.astype(np.int32) - q) for x, y in
+                 zip(outs[DEV], outs["cpu"]) for p, q in zip(x, y)]
+        n_diff = sum(int((q != 0).sum()) for q in diffs)
+        n_all = sum(q.size for q in diffs)
+        check(max(int(q.max()) for q in diffs) <= 1
+              and n_diff <= SCALE_MAX_SHARE * n_all,
+              f"scaler card vs CPU: {n_diff} of {n_all} samples differ")
+        phase("decode_1080p", t, fps=dec_fps, ms=dec_stats,
+              launches=dec_launches, i_frame_cuda_ops=i_ops,
+              kernel_max_abs_err=dec_err, small_identical=small,
+              scale_diff=[n_diff, n_all], card=repr(card))
+
+        # ---- 14. the command line on the card ------------------------------
         t = time.time()
         y4m, out_cli = os.path.join(tmp, "in.y4m"), os.path.join(tmp, "cli.mp4")
         clip_c = moving_clip(*SMALL_SIZE, 6, seed=12)
@@ -1588,7 +1855,7 @@ def main() -> int:
               "the CLI's .mp4 equals a CompressSession's from the same frames")
         phase("cli", t, bytes=len(cli_bytes), identical=True)
 
-        # ---- 14. the record -------------------------------------------------
+        # ---- 15. the record -------------------------------------------------
         meta = {
             "sad": ("csrc/sad.cu", "x264vfw_tpu/ops/pallas/sad.py:239"),
             "memc": ("csrc/memc.cu", "x264vfw_tpu/ops/pallas/memc.py:253"),
@@ -1629,6 +1896,7 @@ def main() -> int:
             if k == "deblock":
                 rec["launches_per_frame"] = launches_vb[k] // (
                     VFB_TYPES["I"] + VFB_TYPES["P"])
+                rec["decode_launches"] = dec_launches
             kernels.append(rec)
         print(card, flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,7 +16,10 @@ on its last anchor's DPB and maps, the measured default session (--psnr
 --ssim, BGRA in, Matroska out; 1 I, 2 P, 6 B) with its SimpleBlocks read
 back and deblock held against its plain version, card against CPU for
 all fifteen command lines and the four lines of conversion, containers
-and telemetry, and the command line.
+and telemetry, the decoder (slice 2's, L4's and a --preset faster --no-cabac
+stream read back on the device route, frames equal to the encoder's
+reconstructions; card against CPU in every output format, on a CABAC + B
+stream and on MP4 samples, and the scaler), and the command line.
 Also: without a card the script exits non-zero and prints no result.
 """
 
@@ -152,12 +155,16 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     assert [k["medium_esa_launches"] for k in kern] == [12, 0, 8]
     # the measured default session: one deblock per I and P frame
     assert [k["measured_launches"] for k in kern] == [0, 0, 3]
+    # the decoder: one deblock per picture of slice 2's, L4's and the
+    # decode line's streams (every picture on the device route)
+    assert kern[2]["decode_launches"] == {"slice2": 6, "l4": 4,
+                                          "faster_zl": 3}
     phases = {ln.split("] ")[1].split(":")[0] for ln in lines
               if ln.startswith("[")}
     assert {"session_1080p_ultrafast_crf23", "session_1080p_hier_qpel_deblock",
             "session_1080p_veryfast", "session_1080p_veryfast_batched",
             "session_1080p_medium", "session_1080p_measured", "card_vs_cpu",
-            "cli"} <= phases
+            "decode_1080p", "cli"} <= phases
     assert kern[2]["launches_per_frame"] == 1
     assert kern[0]["slice1_launches"] == 3
     H, W, R = kern[0]["shape"]     # one VABSDIFF4 per 4 byte differences

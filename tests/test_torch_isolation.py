@@ -2,8 +2,8 @@
 
 * No file of x264vfw_tpu_torch/, nor chip_smoke.py, imports jax or
   anything of the JAX package x264vfw_tpu (AST scan of every import).
-* The entry points default to the CUDA device and raise when there is
-  none, instead of carrying on on the CPU.
+* The entry points (the decoder's among them) default to the CUDA
+  device and raise when there is none, instead of carrying on on the CPU.
 * No file of x264vfw_tpu_torch/, nor chip_smoke.py, names the tools/
   directory, whose C sources and libraries are the JAX package's: the
   port builds its own copies (csrc/host/) into its _build/.
@@ -84,6 +84,20 @@ def test_encoder_and_state_without_cuda_raise(no_cuda):
     z = np.zeros((16, 16), np.int32)
     with pytest.raises(RuntimeError):
         state_from_numpy(z, z[:8, :8], z[:8, :8], frame_idx=1)
+
+
+@pytest.mark.parametrize("make", ["session", "session_host", "decoder"])
+def test_decoder_without_cuda_raises(no_cuda, make):
+    """DecompressSession() (the device route and the output conversion on
+    the card) and H264Decoder(use_device=True) raise without a card;
+    H264Decoder() is the host route and needs none."""
+    from x264vfw_tpu_torch.api import DecompressSession
+    from x264vfw_tpu_torch.decode.decoder import H264Decoder
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        {"session": lambda: DecompressSession(),
+         "session_host": lambda: DecompressSession(use_device=False),
+         "decoder": lambda: H264Decoder(use_device=True)}[make]()
+    assert H264Decoder().device is None
 
 
 @pytest.mark.parametrize("base", ["", "--preset ultrafast --tune "

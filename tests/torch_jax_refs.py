@@ -27,7 +27,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_DIR = os.path.join(ROOT, "tests", "jax_refs")
 NAMES = ("slice1", "slice2", "live", "l3", "l4", "core", "batched",
-         "calls", "multiref", "units", "surface")
+         "calls", "multiref", "units", "surface", "decode")
 SCRIPT = "tools/make_torch_jax_refs.py"
 
 

@@ -85,7 +85,18 @@ source hash no longer matches.  Each file holds:
     _log); the B-frame line's access units as the session emitted them,
     with their pts and keyframe flags (mux_au_<i>, mux_pts, mux_key); and
     the files a CompressSession writes with each CLI case's options from
-    its frames (cli_<container>).
+    its frames (cli_<container>);
+  * decode.npz (test_torch_decode_{host,device,session}.py): the bytes of
+    every stream of tests/torch_decode_streams.py (stream_<name>); per
+    device-route stream, decode_frame_core's planes per picture with
+    batching off (core_<name>_<i>_<plane>) and its MC route
+    (core_<name>_mck), and the default decoder's frames, which batches
+    them (batch_<name>_<field>, batch_<name>_gops); which slices of the
+    CAVLC --8x8dct stream the device route takes (t8_taken); per
+    host-route stream its planes' digests, POCs and frame_num
+    (host_<name>_<field>); and DecompressSession's returns in every
+    output format and scaled (sess_<case>_<call>_<array>) and on a
+    B-frame stream (reorder_<call>_<array>).
 
     JAX_PLATFORMS=cpu python tools/make_torch_jax_refs.py multiref
 
@@ -129,6 +140,7 @@ import test_torch_session as ts  # noqa: E402
 import test_torch_telemetry as ttm  # noqa: E402
 import test_torch_transform as ttf  # noqa: E402
 import test_torch_trellis as ttr  # noqa: E402
+import torch_decode_streams as tds  # noqa: E402
 import torch_jax_refs as refs  # noqa: E402
 from x264vfw_tpu.api import CompressSession  # noqa: E402
 from x264vfw_tpu.bitstream import cavlc_jax  # noqa: E402
@@ -605,6 +617,90 @@ def surface_refs(digest) -> dict:
     return out
 
 
+def decode_refs(digest) -> dict:
+    """The decoder's cases (tests/torch_decode_streams.py): every stream's
+    bytes, and the JAX package's outputs on them."""
+    from x264vfw_tpu.api import DecompressSession
+    from x264vfw_tpu.decode import decoder as jdec
+    from x264vfw_tpu.decode import device_decode as jdd
+    out = {"source_sha256": digest}
+    streams = tds.make_streams()
+    for name, bs in streams.items():
+        out[f"stream_{name}"] = np.frombuffer(bs, np.uint8)
+    core, gop, syntax = (jdd.decode_frame_core, jdd.decode_gop_device,
+                         jdd.parse_slice_syntax)
+    try:
+        for name in tds.DEVICE_STREAMS:
+            # per picture (batching off): decode_frame_core's planes and
+            # its MC route (mck 0: gathers, else the static-shift bucket)
+            calls = []
+
+            def rec_core(*a, **k):
+                res = core(*a, **k)
+                calls.append((k.get("mck", 0),
+                              [np.asarray(p, np.uint8) for p in res]))
+                return res
+
+            jdd.decode_frame_core = rec_core
+            dec = jdec.H264Decoder(use_device=True)
+            dec._BATCH_MAX_MBS = 0
+            dec.decode(streams[name])
+            jdd.decode_frame_core = core
+            out[f"core_{name}_mck"] = np.array([c[0] for c in calls])
+            for i, (_, planes) in enumerate(calls):
+                for p, a in zip("yuv", planes):
+                    out[f"core_{name}_{i}_{p}"] = a
+            # the default decoder: pictures batched into decode_gop_core
+            sizes = []
+
+            def rec_gop(top, parsed, *a, **k):
+                sizes.append(len(parsed))
+                return gop(top, parsed, *a, **k)
+
+            jdd.decode_gop_device = rec_gop
+            for k, v in tds.decode_record(jdec.H264Decoder(use_device=True),
+                                          streams[name]).items():
+                out[f"batch_{name}_{k}"] = v
+            jdd.decode_gop_device = gop
+            out[f"batch_{name}_gops"] = np.array(sizes)
+        # the device route's per-slice choice on a CAVLC --8x8dct stream
+        taken = []
+
+        def rec_syntax(*a, **k):
+            res = syntax(*a, **k)
+            taken.append(res is not None)
+            return res
+
+        jdd.parse_slice_syntax = rec_syntax
+        dec = jdec.H264Decoder(use_device=True)
+        dec._BATCH_MAX_MBS = 0
+        dec.decode(streams["x264_8x8"])
+        out["t8_taken"] = np.array(taken)
+    finally:
+        jdd.decode_frame_core, jdd.decode_gop_device = core, gop
+        jdd.parse_slice_syntax = syntax
+    for name in tds.HOST_STREAMS:
+        for k, v in tds.decode_record(jdec.H264Decoder(), streams[name],
+                                      meta=False).items():
+            out[f"host_{name}_{k}"] = (np.asarray(refs.digest(v))
+                                       if k in "yuv" else v)
+    # DecompressSession: every output format, the scaler, display order
+    aus = tds.split_aus(streams[tds.SESSION_STREAM])
+    cases = {fmt: {"fmt": fmt} for fmt in DecompressSession.OUTPUT_FORMATS}
+    cases.update({f"scale{w}x{h}": {"out_width": w, "out_height": h}
+                  for w, h in tds.SCALES})
+    for case, kw in cases.items():
+        for i, o in enumerate(tds.run_session(DecompressSession(), aus,
+                                              **kw)):
+            for j, a in enumerate(o):
+                out[f"sess_{case}_{i}_{j}"] = np.asarray(a, np.uint8)
+    aus = tds.split_aus(streams[tds.REORDER_STREAM])
+    for i, o in enumerate(tds.run_session(DecompressSession(), aus)):
+        for j, a in enumerate(o):
+            out[f"reorder_{i}_{j}"] = np.asarray(a, np.uint8)
+    return out
+
+
 MULTIREF_PARTS = {"units": multiref_units, "converted": multiref_converted,
                   **{name: (lambda name=name: multiref_session(name))
                      for name in tmr.LINES}}
@@ -620,7 +716,7 @@ def multiref_refs(digest) -> dict:
 MAKERS = {"live": live_refs, "l3": l3_refs, "l4": l4_refs,
           "core": core_refs, "batched": batched_refs, "calls": calls_refs,
           "multiref": multiref_refs, "units": units_refs,
-          "surface": surface_refs}
+          "surface": surface_refs, "decode": decode_refs}
 
 
 def main() -> int:

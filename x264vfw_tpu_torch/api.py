@@ -6,6 +6,9 @@ Port of x264vfw_tpu/api.py :: CompressSession, per-frame and batched paths:
   compress (per frame)     -> CompressSession.compress
   compress_end             -> CompressSession.end
   compress_frames_info     -> CompressSession.frames_info
+  decompress_begin         -> DecompressSession.begin
+  decompress               -> DecompressSession.decompress
+  decompress_end           -> DecompressSession.end
 
 The session owns config resolution (presets/flags), the encoder, the
 muxer, pts/dts bookkeeping and error stickiness.  It runs on the CUDA
@@ -48,6 +51,7 @@ import torch
 from .bitstream.nal import iter_annexb_raw, START_CODE_LONG
 from .config.params import EncoderParams
 from .config.options import parse_cmdline
+from .decode.decoder import H264Decoder
 from .encode.ref_encoder import EncoderConfig
 from .encode.ratecontrol import RateController
 from .encode.torch_encoder import TorchEncoder
@@ -395,6 +399,165 @@ class CompressSession:
         win = 0 if self._pipe is None else 2 * self._pipe.window - 1
         return FramesInfo(delay=min(p.bframes, 16) + look + win)
 
+
+
+class DecompressSession:
+    """decompress_* lifecycle: the decoder and the output conversion.
+
+    Port of x264vfw_tpu/api.py :: DecompressSession.  The decoder is
+    decode/decoder.H264Decoder: with use_device=True (the default) its
+    device route reconstructs the CAVLC I and P slices it takes on the
+    session's device, and every other slice (CABAC, B, ...) takes the
+    host route, as in the JAX package.  Missing or delayed output is
+    masked with a black frame like the reference (codec.c:2250-2256).
+    The output conversion (the reference's swscale stage, codec.c:
+    2075-2152: ops/csp.py and ops/scale.py) runs on the session's device
+    and returns numpy uint8 arrays; avcC and length-prefixed input
+    framing (codec.c:2032-2044, 2190-2221) live at this layer.  The
+    session runs on the CUDA device unless built with device="cpu"."""
+
+    #: output formats decompress() can emit (the reference's
+    #: choose_output_csp surface, codec.c:269-302)
+    OUTPUT_FORMATS = ("i420", "yv12", "nv12", "nv21", "rgb24", "bgr24")
+
+    def __init__(self, use_device: bool = True, device=None) -> None:
+        self._use_device = use_device
+        self.device = resolve_device(device)
+        self.decoder = H264Decoder(use_device=use_device, device=self.device)
+        self._consumed = 0
+        self._reorder: list = []
+
+    def begin(self, width: int = 0, height: int = 0, fmt: str = "i420",
+              extradata: bytes | None = None,
+              out_width: int = 0, out_height: int = 0) -> None:
+        """fmt: output pixel format (OUTPUT_FORMATS).  extradata: avcC
+        record; switches AU input framing to length-prefixed (MP4/MKV
+        sample data) and primes the decoder with its SPS/PPS.  out_width/
+        out_height: optional output scaling (ops/scale.py), default the
+        coded size."""
+        fmt = fmt.lower()
+        if fmt not in self.OUTPUT_FORMATS:
+            raise ValueError(f"unsupported output format {fmt!r}")
+        self.decoder = H264Decoder(use_device=self._use_device,
+                                   device=self.device)
+        self._consumed = 0
+        self._reorder = []
+        self._wh = (width, height)
+        self._fmt = fmt
+        self._out_wh = (out_width, out_height)
+        self._nls = 0
+        if extradata:
+            from .bitstream.avcc import parse_avcc
+            sps_l, pps_l, self._nls = parse_avcc(extradata)
+            prime = b"".join(START_CODE_LONG + n for n in sps_l + pps_l)
+            self.decoder.decode(prime)
+
+    def _pop_display(self):
+        """Emit the earliest frame in display order (IDR epoch, POC)."""
+        i = min(range(len(self._reorder)),
+                key=lambda k: (getattr(self._reorder[k], "idr_epoch", 0),
+                               self._reorder[k].poc))
+        f = self._reorder.pop(i)
+        return self._convert(np.asarray(f.y, np.uint8),
+                             np.asarray(f.u, np.uint8),
+                             np.asarray(f.v, np.uint8))
+
+    def _vui_matrix(self, w: int) -> tuple:
+        """(matrix, fullrange) from the stream's VUI like the reference's
+        sws setup (codec.c:2113-2140); untagged streams guess by size."""
+        sps = next(iter(self.decoder.sps.values()), None)
+        mc = getattr(sps, "matrix_coefficients", 2) if sps else 2
+        fr = bool(getattr(sps, "video_full_range_flag", 0)) if sps else False
+        matrix = {1: "bt709", 4: "bt601", 5: "bt601", 6: "bt601",
+                  9: "bt2020", 10: "bt2020"}.get(mc)
+        if matrix is None:
+            matrix = "bt709" if w >= 1280 else "bt601"
+        return matrix, fr
+
+    def _convert(self, y, u, v):
+        """I420 uint8 planes -> the session's output format and size, as
+        numpy uint8 arrays: I420 and YV12 at the coded size are the
+        planes themselves; scaling, NV12/NV21 and RGB run on the session's
+        device."""
+        ow, oh = self._out_wh
+        scale = ow and oh and (ow, oh) != (y.shape[1], y.shape[0])
+        fmt = getattr(self, "_fmt", "i420")
+        if not scale and fmt in ("i420", "yv12"):
+            return (y, u, v) if fmt == "i420" else (y, v, u)
+        from .ops import csp
+        y, u, v = (torch.as_tensor(p, device=self.device) for p in (y, u, v))
+        if scale:
+            from .ops.scale import scale_i420
+            y, u, v = scale_i420(y, u, v, ow, oh)
+        if fmt in ("rgb24", "bgr24"):
+            matrix, fr = self._vui_matrix(y.shape[1])
+            rgb = csp.i420_to_rgb(y, u, v, matrix=matrix, fullrange=fr)
+            if fmt == "bgr24":
+                rgb = rgb.flip(-1)
+            out = (rgb,)
+        elif fmt in ("nv12", "nv21"):
+            out = csp.i420_to_nv12(y, u if fmt == "nv12" else v,
+                                   v if fmt == "nv12" else u)
+        else:
+            out = (y, u, v) if fmt == "i420" else (y, v, u)
+        out = tuple(p.to(torch.uint8).cpu().numpy() for p in out)
+        return out[0] if len(out) == 1 else out
+
+    def _to_annexb(self, au: bytes) -> bytes:
+        """Length-prefixed AU -> Annex-B (the reference rewrites in place,
+        codec.c:2190-2221).  Annex-B input passes through untouched.
+
+        An AU whose NAL lengths tile it exactly is length-prefixed, even
+        when it starts like a start code: a first NAL of 256 to 511 bytes
+        has a 4-byte length 00 00 01 xx.  The JAX package sniffs the start
+        code first and passes such a sample on as Annex-B, which does not
+        parse (ROADMAP C)."""
+        if not self._nls:
+            return au
+        out = bytearray()
+        pos = 0
+        n = self._nls
+        while pos + n <= len(au):
+            ln = int.from_bytes(au[pos:pos + n], "big")
+            pos += n
+            if ln == 0 or pos + ln > len(au):
+                break
+            out += START_CODE_LONG + au[pos:pos + ln]
+            pos += ln
+        if pos != len(au) and (au[:3] == b"\x00\x00\x01"
+                               or au[:4] == b"\x00\x00\x00\x01"):
+            return au
+        return bytes(out)
+
+    def decompress(self, au: bytes):
+        """Feed one access unit; returns the frame in DISPLAY order in the
+        session's output format ((y, u, v) planes, (y, uv) for NV12/NV21,
+        or an (H, W, 3) array for RGB), or a black frame if nothing is
+        ready yet (delayed-frame masking like the reference,
+        codec.c:2250-2256).  Feed b"" to drain at end of stream."""
+        if au:
+            frames = self.decoder.decode(self._to_annexb(au))
+            self._reorder += frames[self._consumed:]
+            self._consumed = len(frames)
+        # reordering window: streams without B emit immediately; POC-type-0
+        # streams hold 1 frame (non-ref B delay)
+        delay = 0
+        if self._reorder:
+            sps = next(iter(self.decoder.sps.values()), None)
+            if au and sps is not None and sps.pic_order_cnt_type == 0:
+                delay = 1
+        if len(self._reorder) > delay:
+            return self._pop_display()
+        w, h = self._wh
+        if not w:
+            return None
+        return self._convert(
+            np.full((h, w), 16, np.uint8),
+            np.full((h // 2, w // 2), 128, np.uint8),
+            np.full((h // 2, w // 2), 128, np.uint8))
+
+    def end(self) -> None:
+        self._reorder = []
 
 def _to_i420(frame, fmt: str, device):
     """An input frame as (y, u, v) uint8 host planes: I420 as it comes,

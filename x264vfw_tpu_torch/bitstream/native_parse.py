@@ -1,11 +1,13 @@
 """ctypes loader for the host CAVLC slice parser (csrc/host/cavlc_parse.c).
 
 Port of the parse_slice and parse_b_slice loaders of
-x264vfw_tpu/decode/native_parse.py, as the CABAC transcode
-(bitstream/cabac_transcode.py) uses them: one CAVLC I, P or B slice's
-data -> the syntax arrays, with the raw syntax elements the transcoder
-re-codes (mvd per quadrant or per list, partition kind, B mode, I4x4 mode
-flags, mb_qp_delta, transform_size_8x8_flag).  The library is built with gcc
+x264vfw_tpu/decode/native_parse.py, for both of their callers: the CABAC
+transcode (bitstream/cabac_transcode.py), which takes one CAVLC I, P or B
+slice's data with the raw syntax elements it re-codes (mvd per quadrant
+or per list, partition kind, B mode, I4x4 mode flags, mb_qp_delta,
+transform_size_8x8_flag), and the decoder's device route
+(decode/device_decode.py), which takes the syntax arrays alone
+(parse_slice(..., want_raw=False)).  The library is built with gcc
 into _build/ at first use (ops/kernels/build.py); a failed build raises.
 """
 
@@ -58,19 +60,29 @@ _B_OUT = (("mode", (), np.int8), ("mvd0", (2,), np.int16),
 
 def parse_slice(rbsp: np.ndarray, bitpos: int, slice_type: int,
                 mbh: int, mbw: int, qp_init: int, nref: int,
-                transform_8x8: bool):
+                transform_8x8: bool, want_raw: bool = True):
     """Parse one CAVLC slice's data from bit `bitpos` of the RBSP.
-    slice_type: 0 = P, 2 = I.  Returns a dict of syntax arrays with the
-    raw elements (mvdq, refq, part, i4prev, i4rem, qpd, t8), or None when
-    the slice is outside the parser's scope (B, I_PCM, a parse error)."""
+    slice_type: 0 = P, 2 = I.  Returns a dict of syntax arrays, or None
+    when the slice is outside the parser's scope (B, I_PCM, a parse
+    error).
+
+    want_raw (the CABAC transcode's default) also returns the raw
+    elements (mvdq, refq, part, i4prev, i4rem, qpd, t8) and lets the
+    parser accept 8x8-transformed MBs, whose transform_size_8x8_flag it
+    records in t8.  The decoder's device route passes want_raw=False:
+    the raw outputs are null pointers, and a slice with an 8x8-transformed
+    MB is refused (the device core has no 8x8 inverse transform), as in
+    the JAX package's decode route."""
     lib = _lib()
     n = mbh * mbw
     rbsp = np.ascontiguousarray(rbsp, np.uint8)
-    o = {k: np.zeros((n,) + shape, dt) for k, shape, dt in _OUT + _RAW}
+    fields = _OUT + _RAW if want_raw else _OUT
+    o = {k: np.zeros((n,) + shape, dt) for k, shape, dt in fields}
     args = [rbsp.ctypes.data_as(ctypes.c_void_p), ctypes.c_long(rbsp.size),
             ctypes.c_long(bitpos), slice_type, mbh, mbw, qp_init, nref,
             int(transform_8x8), _luts.ctypes.data_as(ctypes.c_void_p)]
-    args += [o[k].ctypes.data_as(ctypes.c_void_p) for k, _, _ in _OUT + _RAW]
+    args += [o[k].ctypes.data_as(ctypes.c_void_p) for k, _, _ in fields]
+    args += [None] * (len(_OUT + _RAW) - len(fields))
     if lib.cavlc_parse_slice(*args) != n:
         return None
     return o
