@@ -78,8 +78,21 @@ DecompressSession give equal outputs on a CAVLC stream with I4x4 and
 three references in every output format, on the default session's
 CABAC + B stream (the host route) and on the NV12 line's MP4 samples
 with its avcC, and the scaler (to half the size) is within 1 of the
-CPU's.  Last, the command line (x264vfw_tpu_torch/cli.py) encodes a Y4M
-file to MP4 on the card, equal to a CompressSession's file.
+CPU's.  Then the batch transcode (phase transcode_4k, BASELINE config
+5): a 3840x2160 stream with slice 2's options (1 IDR + 3 P) is decoded on
+the device route (every picture equal to the 4K encoder's
+reconstruction), scaled to 1080p and re-encoded by the default session
+at CQP 26 into an MP4 whose samples equal the returned AUs, with the
+SAD, memc and deblock kernels held against their plain versions on the
+4K source's last P frame and the 4K decode's last maps; the GOP-parallel
+route over one card named twice (gop_1080p: encode_clip_gop_parallel,
+equal to the per-frame encoder; session_1080p_threads: the default
+session with --threads 4 --keyint 4, its five downgrade warnings, 2
+IDRs); and card against CPU at the small size for
+encode_clip_gop_parallel, the sharded session (also equal to --threads
+1 with the downgraded options) and the transcode.  Last, the command
+line (x264vfw_tpu_torch/cli.py) encodes a Y4M file to MP4 on the card,
+equal to a CompressSession's file.
 Each kernel's launch count is set to 0 just before a session and read
 just after it.  Prints one line per phase
 with its elapsed seconds; the last three lines are the card's name and
@@ -157,6 +170,26 @@ SURFACE_LINES = (("--psnr --ssim", "bgra", "mkv"),
                  (CMDLINE_VF + " --psnr", "nv12", "mp4"),
                  ("--preset ultrafast --crf 23 --threads 4", "yuyv", "flv"),
                  ("--preset superfast --crf 23", "rgb24", "avi"))
+# the transcode (BASELINE config 5): a 4K CAVLC source with slice 2's
+# options (1 IDR + 3 P), decoded on the device route, scaled to 1080p and
+# re-encoded with the JAX package's default transcode params
+TC_SRC_SIZE = (3840, 2160)
+TC_DST_SIZE = (1920, 1080)
+TC_FRAMES = 4
+# the GOP-parallel route on one card named twice: encode_clip_gop_parallel
+# (GOP_COUNT GOPs of GOP_LEN frames), and the default session with
+# --threads 4 --keyint 4 (THREADS_FRAMES frames, one batch of two GOPs)
+SHARD_DEVICES = 2
+GOP_LEN, GOP_COUNT = 3, 2
+CMDLINE_THREADS = "--threads 4 --keyint 4"
+THREADS_FRAMES = 8
+SHARD_WARNED = ["bframes", "ref", "weightp", "mbtree", "scenecut"]
+# the same session at one QP, and --threads 1 with the options the shard
+# route downgrades to: equal bytes (the JAX package's
+# test_threads8_bit_identical_to_single_chip)
+CMDLINE_THREADS_CQP = CMDLINE_THREADS + " --qp 26"
+CMDLINE_THREADS_1 = ("--threads 1 --keyint 4 --qp 26 --bframes 0 --ref 1 "
+                     "--weightp 0 --no-mbtree --scenecut 0")
 DEV = "cuda"
 KERNELS = ("sad", "memc", "deblock")
 SESSION_SIZE = (1920, 1080)            # the main paths' geometry
@@ -627,7 +660,7 @@ def main() -> int:
     from x264vfw_tpu_torch.encode import device_finalize as dfin
     from x264vfw_tpu_torch.encode.inter_partition import \
         partition_decide_from_minima
-    from x264vfw_tpu_torch.encode.torch_encoder import _pad
+    from x264vfw_tpu_torch.encode.torch_encoder import TorchEncoder, _pad
     from x264vfw_tpu_torch.ops.kernels import build
     from x264vfw_tpu_torch.ops.kernels import deblock as dbk
     from x264vfw_tpu_torch.ops.kernels import memc as memck
@@ -1644,9 +1677,82 @@ def main() -> int:
             check(("psnr" in ends["cpu"]) == ("--psnr" in cmd),
                   f"{cmd!r} reports PSNR")
             sizes[f"{cmd} ({fmt} -> {ext})"] = len(files["cpu"])
+        # the GOP-parallel route (one card named SHARD_DEVICES times; the
+        # CPU as many times): encode_clip_gop_parallel, and the sharded
+        # default session, which also equals --threads 1 with the options
+        # it downgrades to
+        from x264vfw_tpu_torch.encode.ref_encoder import EncoderConfig
+        from x264vfw_tpu_torch.parallel import gop as gopm
+        from x264vfw_tpu_torch.parallel import transcode as tcm
+        cfg_s = EncoderConfig(width=SMALL_SIZE[0], height=SMALL_SIZE[1],
+                              qp=26, keyint=GOP_LEN, search_range=16,
+                              deblock=True, partitions=True,
+                              me_backend="pallas")
+        clip_s = small[:GOP_LEN * GOP_COUNT]
+        gop_small = {d: gopm.encode_clip_gop_parallel(
+            clip_s, cfg_s, devices=[d] * SHARD_DEVICES)
+            for d in dict.fromkeys((DEV, "cpu"))}
+        check(gop_small[DEV] == gop_small["cpu"], "card and CPU "
+              "encode_clip_gop_parallel streams differ")
+        sizes["encode_clip_gop_parallel"] = len(gop_small["cpu"])
+        shard = {}
+        for d in dict.fromkeys((DEV, "cpu")):
+            s = CompressSession(extra_cmdline=CMDLINE_THREADS_CQP, device=d,
+                                devices=[d] * SHARD_DEVICES)
+            s.begin(*SMALL_SIZE)
+            check(s._shard, f"{CMDLINE_THREADS_CQP!r} shards on {d}")
+            shard[d] = b"".join(s.compress(fr) for fr in
+                                small[:THREADS_FRAMES]) + s.end()["tail"]
+        s = CompressSession(extra_cmdline=CMDLINE_THREADS_1, device=DEV)
+        s.begin(*SMALL_SIZE)
+        single = b"".join(s.compress(fr) for fr in small[:THREADS_FRAMES]) \
+            + s.end()["tail"]
+        check(shard[DEV] == shard["cpu"], "card and CPU sharded sessions "
+              "differ")
+        check(shard[DEV] == single, "the sharded session differs from "
+              f"{CMDLINE_THREADS_1!r}")
+        sizes[CMDLINE_THREADS_CQP] = len(shard["cpu"])
+        # the transcode of a CAVLC source (slice 2's options) to half the
+        # size; the frames the scaler hands to the encoder are kept
+        s = CompressSession(extra_cmdline=CMDLINE_PARTS, device=DEV)
+        s.begin(*SMALL_SIZE)
+        tc_src = b"".join(s.compress(fr) for fr in small[:TC_FRAMES]) + \
+            s.end()["tail"]
+        dst = (SMALL_SIZE[0] // 2, SMALL_SIZE[1] // 2)
+        tc_out, tc_frames = {}, {}
+        plain_scaled = tcm._scaled
+        for d in dict.fromkeys((DEV, "cpu")):
+            tc_frames[d] = []
+            tcm._scaled = (lambda *a, _k=tc_frames[d], **k:
+                           _k.append(plain_scaled(*a, **k)) or _k[-1])
+            try:
+                tc_out[d] = tcm.transcode(tc_src, *dst, device=d)
+            finally:
+                tcm._scaled = plain_scaled
+        tc_diff = sum(int((p != q).sum()) for x, y in
+                      zip(tc_frames[DEV], tc_frames["cpu"])
+                      for p, q in zip(x, y))
+        tc_reencoded = False
+        if tc_out[DEV] != tc_out["cpu"]:
+            # the scaler rounded some sample the other way: the card's
+            # re-encode of the CPU's scaled frames must equal the CPU's
+            check(tc_diff > 0, "card and CPU transcodes differ with equal "
+                  "scaled frames")
+            s = CompressSession(tcm.EncoderParams(rc_mode="cqp", qp=26),
+                                device=DEV)
+            s.begin(*dst)
+            again = b"".join(s.compress(fr) for fr in tc_frames["cpu"]) + \
+                s.end()["tail"]
+            check(again == tc_out["cpu"], "the card's re-encode of the "
+                  "CPU's scaled frames differs from the CPU's transcode")
+            tc_reencoded = True
+        sizes["transcode"] = len(tc_out["cpu"])
         phase("card_vs_cpu", t, bytes=list(sizes.values()),
               idrs=list(idrs.values()), identical=True,
-              esa_launches=launches_esa)
+              esa_launches=launches_esa,
+              transcode_scaled_diff=[tc_diff, sum(
+                  p.size for x in tc_frames["cpu"] for p in x)],
+              transcode_compared_reencode=tc_reencoded)
 
         # ---- 13. decode_1080p: the decoder on the card -------------------
         t = time.time()
@@ -1831,7 +1937,308 @@ def main() -> int:
               kernel_max_abs_err=dec_err, small_identical=small,
               scale_diff=[n_diff, n_all], card=repr(card))
 
-        # ---- 14. the command line on the card ------------------------------
+        # ---- 14. transcode_4k: decode -> scale -> re-encode from 4K -------
+        t = time.time()
+        tw, th = TC_SRC_SIZE
+        clip_t = moving_clip(tw, th, TC_FRAMES, seed=13)
+        sess = CompressSession(extra_cmdline=CMDLINE_PARTS, device=DEV)
+        sess.begin(tw, th)
+        enc = sess.encoder
+        for m in mods.values():
+            m.LAUNCHES = 0
+        tc_src, tc_recons, tc_enc_ms = [], [], []
+        for frame in clip_t:
+            prev_ref = enc.ref
+            t1 = time.time()
+            tc_src.append(sess.compress(frame))
+            torch.cuda.synchronize()
+            tc_enc_ms.append((time.time() - t1) * 1e3)
+            tc_recons.append(enc.last_recon)
+        launches_src = {k: m.LAUNCHES for k, m in mods.items()}
+        sess.end()
+        check(launches_src == {"sad": TC_FRAMES - 1, "memc": TC_FRAMES - 1,
+                               "deblock": TC_FRAMES},
+              f"4K source launches {launches_src}")
+        # SAD (both modes) and memc against their plain versions on the 4K
+        # source's last P frame, formed as the encoder forms them
+        # (names of their own: H, W and R stay the kernels' timed shape)
+        r4 = enc.cfg.search_range
+        src4 = torch.as_tensor(_pad(clip_t[-1][0], 16 * enc.mbh,
+                                    16 * enc.mbw), device=dev) \
+            .to(torch.uint8).contiguous()
+        refp4 = dv._edge_pad(prev_ref[0], r4).to(torch.uint8).contiguous()
+        refm4 = dv._edge_pad(prev_ref[0], r4 + 8).to(torch.uint8) \
+            .contiguous()
+        mins4 = sadk.sad_partition_minima(src4, refp4, r4)
+        part4, mv8i4 = partition_decide_from_minima(mins4, r4, enc.qp)
+        tc_err = {
+            "sad": max_diff(mins4, sadk.sad_partition_minima_plain(
+                src4, refp4, r4)),
+            "quad": max_diff(sadk.sad_search_quad(src4, refp4, r4),
+                             sadk.sad_search_quad_plain(src4, refp4, r4))}
+        for sub_lv in (0, 1, 2):
+            tc_err[f"memc_lv{sub_lv}"] = max_diff(
+                memck.partition_refine_mc(src4, refm4, mv8i4, part4, r4,
+                                          sub_lv),
+                memck.partition_refine_mc_plain(src4, refm4, mv8i4, part4,
+                                                r4, sub_lv))
+        del src4, refp4, refm4, mins4, part4, mv8i4, prev_ref
+        # the transcode, each stage timed: the decode (CUDA events around
+        # each picture's decode_frame_core), the scale per frame and each
+        # compress() and end() call of the re-encode
+        from x264vfw_tpu_torch.decode import device_decode as ddec
+        stage = {"decode": [], "scale": [], "encode": []}
+        core_ev, db_args, tc_state = [], [], {}
+        plain = {"dec": tcm.H264Decoder, "sess": tcm.CompressSession,
+                 "scaled": tcm._scaled, "core": ddec.decode_frame_core,
+                 "kernel": dbk.deblock_apply}
+
+        def host_ms(key, fn, *a, **k):
+            t1 = time.time()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            stage[key].append((time.time() - t1) * 1e3)
+            return res
+
+        class TimedDecoder(plain["dec"]):
+            def decode(self, annexb):
+                res = host_ms("decode", super().decode, annexb)
+                tc_state["frames"] = self.display_order()
+                tc_state["decode_launches"] = dbk.LAUNCHES
+                return res
+
+        class TimedSession(plain["sess"]):
+            def begin(self, *a, **k):
+                tc_state["session"] = self
+                return super().begin(*a, **k)
+
+            def compress(self, *a, **k):
+                return host_ms("encode", super().compress, *a, **k)
+
+            def end(self):
+                return host_ms("encode", super().end)
+
+        def timed_core(syn, kinds, luma, *a, **k):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            res = plain["core"](syn, kinds, luma, *a, **k)
+            ev[1].record()
+            core_ev.append(("I" if luma is None else "P", ev))
+            return res
+
+        def keep_db(*a, **k):
+            if "frames" not in tc_state:       # the decode's calls
+                db_args[:] = [a]
+            return plain["kernel"](*a, **k)
+
+        tcm.H264Decoder, tcm.CompressSession = TimedDecoder, TimedSession
+        tcm._scaled = lambda *a, **k: host_ms("scale", plain["scaled"], *a,
+                                              **k)
+        ddec.decode_frame_core, dbk.deblock_apply = timed_core, keep_db
+        mp4_tc = os.path.join(tmp, "transcode.mp4")
+        try:
+            for m in mods.values():
+                m.LAUNCHES = 0
+            t1 = time.time()
+            tc_out = tcm.transcode(b"".join(tc_src), *TC_DST_SIZE,
+                                   output=mp4_tc, device=DEV)
+            torch.cuda.synchronize()
+            tc_wall = time.time() - t1
+            launches_tc = {k: m.LAUNCHES for k, m in mods.items()}
+        finally:
+            tcm.H264Decoder, tcm.CompressSession = plain["dec"], \
+                plain["sess"]
+            tcm._scaled = plain["scaled"]
+            ddec.decode_frame_core, dbk.deblock_apply = plain["core"], \
+                plain["kernel"]
+        check(len(core_ev) == TC_FRAMES and tc_state["decode_launches"]
+              == TC_FRAMES, f"every 4K picture on the device route: "
+              f"{len(core_ev)} cores, {tc_state['decode_launches']} deblock "
+              "launches")
+        check(all(all(np.array_equal(getattr(f, k), r) for k, r in
+                      zip("yuv", rc))
+                  for f, rc in zip(tc_state["frames"], tc_recons)),
+              "the 4K decode equals the encoder's reconstructions")
+        tc_aus = split_aus(tc_out)
+        types = "".join("I" if u.nal_unit_type == 5 else
+                        ("P" if u.nal_ref_idc else "B")
+                        for u in split_annexb(tc_out)
+                        if u.nal_unit_type in (1, 5))
+        check(len(tc_aus) == TC_FRAMES and len(types) == TC_FRAMES
+              and types[0] == "I", f"{len(tc_aus)} AUs ({types}) out of "
+              f"{TC_FRAMES} frames")
+        want_db = TC_FRAMES + types.count("I") + types.count("P")
+        check(launches_tc["deblock"] == want_db, f"transcode deblock "
+              f"launches {launches_tc}: want one per decoded picture and "
+              f"per re-encoded I and P frame ({want_db})")
+        with open(mp4_tc, "rb") as fh:
+            _, samples = mp4_samples(fh.read())
+        want = [b"".join(len(n).to_bytes(4, "big") + n
+                         for n in iter_annexb_raw(au)
+                         if n[0] & 0x1F not in (7, 8)) for au in tc_aus]
+        check(samples == want, f"{len(samples)} MP4 samples equal to the "
+              f"length-prefixed AUs: {samples == want}")
+        tc_err["deblock"] = max_diff(dbk.deblock_apply(*db_args[0]),
+                                     dbk.deblock_apply_plain(*db_args[0]))
+        check(not any(tc_err.values()), f"kernels vs plain on the 4K "
+              f"source's last P frame and the 4K decode's maps: {tc_err}")
+        for k in KERNELS:
+            err[k] = max([err[k]] + [d for n, d in tc_err.items()
+                                     if n.startswith(k) or (k == "sad"
+                                                            and n == "quad")])
+        core_ms = [(ft, e0.elapsed_time(e1)) for ft, (e0, e1) in core_ev]
+        out_w, out_h = tc_state["session"].params.width, \
+            tc_state["session"].params.height
+        check((out_w, out_h) == TC_DST_SIZE, f"re-encoded at {out_w}x{out_h}")
+        del db_args, tc_state, clip_t, tc_recons
+        phase("transcode_4k", t, src_bytes=len(b"".join(tc_src)),
+              out_bytes=len(tc_out), types=types,
+              encode_4k_ms=[round(x, 1) for x in tc_enc_ms],
+              decode_ms_per_frame=round(sum(stage["decode"]) / TC_FRAMES, 1),
+              decode_core_ms=[(ft, round(x, 1)) for ft, x in core_ms],
+              scale_ms=[round(x, 2) for x in stage["scale"]],
+              reencode_ms_per_frame=round(sum(stage["encode"]) / TC_FRAMES,
+                                          1),
+              reencode_call_ms=[round(x, 1) for x in stage["encode"]],
+              wall_s=round(tc_wall, 3), fps=round(TC_FRAMES / tc_wall, 3),
+              launches=launches_tc, source_launches=launches_src,
+              session_max_abs_err=tc_err, mp4_samples=len(samples),
+              card=repr(card))
+
+        # ---- 15. gop_1080p: encode_clip_gop_parallel on one card, twice -----
+        t = time.time()
+        cfg_g = EncoderConfig(width=w, height=h, qp=26, keyint=GOP_LEN,
+                              search_range=16, deblock=True, partitions=True,
+                              me_backend="pallas")
+        clip_g = clip[:GOP_LEN * GOP_COUNT]
+        gop_ms = []
+        plain_gop = gopm.encode_gop_packed_device
+
+        def timed_gop(*a, **k):
+            t1 = time.time()
+            res = plain_gop(*a, **k)
+            torch.cuda.synchronize()
+            gop_ms.append((time.time() - t1) * 1e3)
+            return res
+
+        gopm.encode_gop_packed_device = timed_gop
+        try:
+            for m in mods.values():
+                m.LAUNCHES = 0
+            t1 = time.time()
+            stream_g = gopm.encode_clip_gop_parallel(
+                clip_g, cfg_g, devices=[dev] * SHARD_DEVICES)
+            torch.cuda.synchronize()
+            wall_g = time.time() - t1
+            launches_g = {k: m.LAUNCHES for k, m in mods.items()}
+        finally:
+            gopm.encode_gop_packed_device = plain_gop
+        enc = TorchEncoder(cfg_g, device=DEV)
+        t1 = time.time()
+        single = b"".join(enc.encode_frame(*f) for f in clip_g)
+        torch.cuda.synchronize()
+        wall_1 = time.time() - t1
+        check(stream_g == single, "the GOP-parallel stream differs from the "
+              "per-frame encoder's at keyint = GOP length")
+        n_p = GOP_COUNT * (GOP_LEN - 1)
+        check(launches_g == {"sad": n_p, "memc": n_p,
+                             "deblock": GOP_COUNT * GOP_LEN},
+              f"gop_1080p launches {launches_g}: want one SAD and memc per "
+              "P frame, one deblock per frame")
+        nals = [u.nal_unit_type for u in split_annexb(stream_g)]
+        check(nals.count(5) == GOP_COUNT and nals.count(1) == n_p,
+              f"{GOP_COUNT} IDRs and {n_p} P slices: {nals}")
+        phase("gop_1080p", t, bytes=len(stream_g), wall_s=round(wall_g, 3),
+              gop_ms=[round(x, 1) for x in gop_ms],
+              per_frame_encoder_s=round(wall_1, 3),
+              fps=round(len(clip_g) / wall_g, 3),
+              per_frame_fps=round(len(clip_g) / wall_1, 3),
+              launches=launches_g, card=repr(card))
+
+        # ---- 16. session_1080p_threads: --threads 4 on one card, twice ------
+        t = time.time()
+        clip_th = moving_clip(w, h, THREADS_FRAMES, seed=14)
+        sess = CompressSession(extra_cmdline=CMDLINE_THREADS, device=DEV,
+                               devices=[dev] * SHARD_DEVICES)
+        msgs = []
+        sess.log.sink = lambda lvl, m: msgs.append(m)
+        sess.begin(w, h)
+        pipe = sess._pipe
+        warned = [m.split("support ")[1].split(";")[0] for m in msgs
+                  if "(sharded GOP mode)" in m]
+        check(sess._shard and isinstance(pipe, gopm.GopShardPipeline)
+              and pipe.G == 4 and warned == SHARD_WARNED,
+              f"--threads 4 over two devices shards, downgrading "
+              f"{SHARD_WARNED}: {warned}")
+        cfg = sess.encoder.cfg
+        check((cfg.bframes, sess.encoder.nref, cfg.weightp, cfg.scenecut,
+               sess.mbtree, sess.encoder.partitions, cfg.cabac, cfg.i4x4)
+              == (0, 1, 0, 0, None, True, True, True),
+              "the downgraded options reach the encoder")
+        marks = []
+        plain_unpack, plain_gop = gopm._unpack_src, gopm.encode_gop_packed_device
+
+        def mark_unpack(*a, **k):
+            torch.cuda.synchronize()
+            marks.append(("frame", time.time()))
+            return plain_unpack(*a, **k)
+
+        def mark_gop(*a, **k):
+            res = plain_gop(*a, **k)
+            torch.cuda.synchronize()
+            marks.append(("end", time.time()))
+            return res
+
+        gopm._unpack_src, gopm.encode_gop_packed_device = mark_unpack, \
+            mark_gop
+        try:
+            for m in mods.values():
+                m.LAUNCHES = 0
+            t1 = time.time()
+            outs = [sess.compress(frame) for frame in clip_th]
+            tail = sess.end()["tail"]
+            torch.cuda.synchronize()
+            wall_th = time.time() - t1
+            launches_th = {k: m.LAUNCHES for k, m in mods.items()}
+        finally:
+            gopm._unpack_src, gopm.encode_gop_packed_device = plain_unpack, \
+                plain_gop
+        check([bool(o) for o in outs] == [False] * (THREADS_FRAMES - 1)
+              + [True] and not tail
+              and sess.frames_info().delay == THREADS_FRAMES - 1,
+              "compress() returns b'' until the batch of two GOPs fills, "
+              "then all of it (frames_info().delay)")
+        stream = b"".join(outs)
+        nals = [u.nal_unit_type for u in split_annexb(stream)]
+        n_p = THREADS_FRAMES - THREADS_FRAMES // 4
+        check(nals.count(5) == THREADS_FRAMES // 4 and nals.count(1) == n_p
+              and len(split_aus(stream)) == THREADS_FRAMES,
+              f"2 IDRs and {n_p} P slices in {THREADS_FRAMES} AUs: {nals}")
+        check(launches_th == {"sad": n_p, "memc": n_p,
+                              "deblock": THREADS_FRAMES},
+              f"threads launches {launches_th}: want one SAD and memc per "
+              "P frame, one deblock per frame")
+        # each frame from its unpack to the next frame's (or its GOP's end)
+        frame_ms = {"I": [], "P": []}
+        k = 0
+        for (kind, t_a), (_, t_b) in zip(marks, marks[1:]):
+            if kind == "frame":
+                frame_ms["I" if k % 4 == 0 else "P"].append(
+                    (t_b - t_a) * 1e3)
+                k += 1
+        check(k == THREADS_FRAMES, f"{k} frames timed")
+        phase("session_1080p_threads", t, bytes=len(stream),
+              wall_s=round(wall_th, 3), fps=round(THREADS_FRAMES / wall_th,
+                                                  3),
+              ms_per_frame={t_: [round(x, 1) for x in v]
+                            for t_, v in frame_ms.items()},
+              cabac_ms=[round(x, 2) for x in pipe.transcode_ms],
+              delay=sess.frames_info().delay, warned=warned,
+              launches=launches_th, card=repr(card))
+        del clip_th, outs, stream
+
+        # ---- 17. the command line on the card ------------------------------
         t = time.time()
         y4m, out_cli = os.path.join(tmp, "in.y4m"), os.path.join(tmp, "cli.mp4")
         clip_c = moving_clip(*SMALL_SIZE, 6, seed=12)
@@ -1855,7 +2262,7 @@ def main() -> int:
               "the CLI's .mp4 equals a CompressSession's from the same frames")
         phase("cli", t, bytes=len(cli_bytes), identical=True)
 
-        # ---- 15. the record -------------------------------------------------
+        # ---- 18. the record -------------------------------------------------
         meta = {
             "sad": ("csrc/sad.cu", "x264vfw_tpu/ops/pallas/sad.py:239"),
             "memc": ("csrc/memc.cu", "x264vfw_tpu/ops/pallas/memc.py:253"),
@@ -1881,6 +2288,10 @@ def main() -> int:
                 "medium_launches": launches_m[k],
                 "medium_esa_launches": launches_esa[k],
                 "measured_launches": launches_r[k],
+                "transcode_4k_launches": launches_tc[k],
+                "transcode_4k_source_launches": launches_src[k],
+                "gop_1080p_launches": launches_g[k],
+                "threads_launches": launches_th[k],
                 "build_s": build_s[k], "ptxas": ptxas_report(k),
                 "shape": [H, W, R], "card": card}
             if k == "sad":

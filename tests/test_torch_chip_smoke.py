@@ -16,10 +16,14 @@ on its last anchor's DPB and maps, the measured default session (--psnr
 --ssim, BGRA in, Matroska out; 1 I, 2 P, 6 B) with its SimpleBlocks read
 back and deblock held against its plain version, card against CPU for
 all fifteen command lines and the four lines of conversion, containers
-and telemetry, the decoder (slice 2's, L4's and a --preset faster --no-cabac
-stream read back on the device route, frames equal to the encoder's
-reconstructions; card against CPU in every output format, on a CABAC + B
-stream and on MP4 samples, and the scaler), and the command line.
+and telemetry, and for the GOP-parallel route, the sharded session and
+the transcode, the decoder (slice 2's, L4's and a --preset faster
+--no-cabac stream read back on the device route, frames equal to the
+encoder's reconstructions; card against CPU in every output format, on
+a CABAC + B stream and on MP4 samples, and the scaler), the transcode
+from the session size to half of it (the script's 4K to 1080p), the
+GOP-parallel encode and the --threads 4 session on one device named
+twice, and the command line.
 Also: without a card the script exits non-zero and prints no result.
 """
 
@@ -87,6 +91,9 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     # frames with the cut at 19 on the card)
     monkeypatch.setattr(cs, "B_FRAMES", 14)
     monkeypatch.setattr(cs, "B_CUT", 9)
+    # the transcode from the session size (the script's 4K) to half of it
+    monkeypatch.setattr(cs, "TC_SRC_SIZE", (128, 96))
+    monkeypatch.setattr(cs, "TC_DST_SIZE", (64, 48))
     monkeypatch.setattr(cs, "card_line", lambda: "cpu, 0 W")
     monkeypatch.setattr(cs, "sm_clock_hz", lambda: 1.98e9)
     monkeypatch.setattr(cs, "sad_sass_per_sad4", lambda: None)
@@ -126,6 +133,15 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(tip, "partition_refine_mc", memc)
     monkeypatch.setattr(dbk, "deblock_apply",
                         counted(dbk, dbk.deblock_apply))
+    # the transcode decodes on the device route, as on the card (on the
+    # CPU the port's transcode takes the host route)
+    from x264vfw_tpu_torch.parallel import transcode as tcm
+
+    class DeviceRoute(tcm.H264Decoder):
+        def __init__(self, use_device=False, device=None):
+            super().__init__(use_device=True, device=device)
+
+    monkeypatch.setattr(tcm, "H264Decoder", DeviceRoute)
     assert cs.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == {"ok": True, "device": {
@@ -159,12 +175,23 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     # decode line's streams (every picture on the device route)
     assert kern[2]["decode_launches"] == {"slice2": 6, "l4": 4,
                                           "faster_zl": 3}
+    # the transcode: its source (1 IDR + 3 P, slice 2's options), then one
+    # deblock per decoded picture (4) and per re-encoded I and P frame
+    # (the default session's 4 frames: I, P, B, B)
+    assert [k["transcode_4k_source_launches"] for k in kern] == [3, 3, 4]
+    assert [k["transcode_4k_launches"] for k in kern] == [0, 0, 6]
+    # the GOP-parallel route, two GOPs of 3 frames: one SAD and memc per P
+    # frame, one deblock per frame; the session with --threads 4 --keyint
+    # 4 (8 frames, 2 IDRs), the same
+    assert [k["gop_1080p_launches"] for k in kern] == [4, 4, 6]
+    assert [k["threads_launches"] for k in kern] == [6, 6, 8]
     phases = {ln.split("] ")[1].split(":")[0] for ln in lines
               if ln.startswith("[")}
     assert {"session_1080p_ultrafast_crf23", "session_1080p_hier_qpel_deblock",
             "session_1080p_veryfast", "session_1080p_veryfast_batched",
             "session_1080p_medium", "session_1080p_measured", "card_vs_cpu",
-            "decode_1080p", "cli"} <= phases
+            "decode_1080p", "transcode_4k", "gop_1080p",
+            "session_1080p_threads", "cli"} <= phases
     assert kern[2]["launches_per_frame"] == 1
     assert kern[0]["slice1_launches"] == 3
     H, W, R = kern[0]["shape"]     # one VABSDIFF4 per 4 byte differences

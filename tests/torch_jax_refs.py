@@ -5,7 +5,8 @@ cores, finalisation, deblock and packing cases of the older test files,
 the B-frame lines with the B cores and MB-tree's P cores, the single
 JAX calls of the SAD, search, partition, CAVLC and map tests, and the
 --psnr/--ssim sessions, muxer input and CLI files of the session
-surface).
+surface, the decoder's cases, and the GOP-parallel, transcode and
+host-entropy cases).
 
 tools/make_torch_jax_refs.py runs the JAX package on the tests' own inputs
 and writes its access units (and, for the converted-state tests, the
@@ -27,7 +28,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_DIR = os.path.join(ROOT, "tests", "jax_refs")
 NAMES = ("slice1", "slice2", "live", "l3", "l4", "core", "batched",
-         "calls", "multiref", "units", "surface", "decode")
+         "calls", "multiref", "units", "surface", "decode", "parallel")
 SCRIPT = "tools/make_torch_jax_refs.py"
 
 

@@ -96,7 +96,19 @@ source hash no longer matches.  Each file holds:
     host-route stream its planes' digests, POCs and frame_num
     (host_<name>_<field>); and DecompressSession's returns in every
     output format and scaled (sess_<case>_<call>_<array>) and on a
-    B-frame stream (reorder_<call>_<array>).
+    B-frame stream (reorder_<call>_<array>);
+  * parallel.npz (test_torch_{gop,transcode,host_entropy}.py), written
+    on the JAX package's 8-device host mesh (this script sets
+    --xla_force_host_platform_device_count=8 before JAX is imported when
+    it writes this file): encode_clip_gop_parallel's stream (gop_stream);
+    the --threads 8 sessions, sharded over the mesh, with and without
+    CABAC (threads<--cabac|--no-cabac>_out_<i>, _tail) and the
+    downgrade warnings of a sharded default session (downgrade_log); the
+    transcode's source stream (tc_src), its output with the test's params
+    and with the default ones (tc_out, tc_default_out), the MP4 it
+    writes (tc_mp4), transcode_frames' output (tf_out) and the frames
+    the JAX scaler hands to the encoder in each (tc_<i>_<plane>,
+    tf_<i>_<plane>); and the host-entropy encoder's stream (he_stream).
 
     JAX_PLATFORMS=cpu python tools/make_torch_jax_refs.py multiref
 
@@ -113,6 +125,12 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+if not sys.argv[1:] or "parallel" in sys.argv[1:]:
+    # the GOP-parallel cases run on an 8-device host mesh, as the JAX
+    # package's tests do (tests/conftest.py)
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " "
+                               "--xla_force_host_platform_device_count=8"
+                               ).strip()
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -135,10 +153,13 @@ import test_torch_live_presets as tl  # noqa: E402
 import test_torch_memc as tmc  # noqa: E402
 import test_torch_multiref as tmr  # noqa: E402
 import test_torch_partitions as tp  # noqa: E402
+import test_torch_gop as tg  # noqa: E402
+import test_torch_host_entropy as the  # noqa: E402
 import test_torch_pipeline as tpl  # noqa: E402
 import test_torch_session as ts  # noqa: E402
 import test_torch_telemetry as ttm  # noqa: E402
 import test_torch_transform as ttf  # noqa: E402
+import test_torch_transcode as ttc  # noqa: E402
 import test_torch_trellis as ttr  # noqa: E402
 import torch_decode_streams as tds  # noqa: E402
 import torch_jax_refs as refs  # noqa: E402
@@ -701,6 +722,66 @@ def decode_refs(digest) -> dict:
     return out
 
 
+def parallel_refs(digest) -> dict:
+    """The GOP-parallel encode and session, the transcode and the
+    host-entropy encoder on their tests' inputs (parallel.npz)."""
+    import tempfile
+    from x264vfw_tpu.config.params import EncoderParams as JParams
+    from x264vfw_tpu.decode.decoder import H264Decoder as JDecoder
+    from x264vfw_tpu.encode.ref_encoder import EncoderConfig as JConfig
+    from x264vfw_tpu.ops.scale import scale_i420 as jscale
+    from x264vfw_tpu.parallel import gop as jgop
+    from x264vfw_tpu.parallel import transcode as jtc
+    assert jax.device_count() == tg.MESH, jax.devices()
+
+    def arr(b: bytes):
+        return np.frombuffer(b, np.uint8)
+
+    out = {"source_sha256": digest}
+    out["gop_stream"] = arr(jgop.encode_clip_gop_parallel(
+        tg.gop_frames(), JConfig(**tg.GOP_CFG)))
+    for cabac in tg.CABAC:
+        s = CompressSession(JParams(), extra_cmdline=f"{tg.THREADS_CMD} "
+                                                      f"--threads 8 {cabac}")
+        outs, tail = tg.run_session(s)
+        assert s._shard
+        put_aus(out, f"threads{cabac}_out", outs)
+        out[f"threads{cabac}_tail"] = arr(tail)
+    s = CompressSession(JParams(), extra_cmdline=tg.DOWNGRADE_CMD)
+    msgs = []
+    s.log.sink = lambda lvl, m: msgs.append(m)
+    s.begin(tg.W, tg.H)
+    out["downgrade_log"] = np.array(msgs)
+    # the transcode: its source, its outputs, the scaled frames
+    s = CompressSession(ttc.src_params())
+    s.begin(ttc.W, ttc.H)
+    src = b"".join(s.compress(f) for f in ttc.clip_frames()) + \
+        s.end()["tail"]
+    out["tc_src"] = arr(src)
+    with tempfile.TemporaryDirectory() as tmp:
+        mp4 = os.path.join(tmp, "out.mp4")
+        out["tc_out"] = arr(jtc.transcode(src, *ttc.DST, ttc.out_params(),
+                                          output=mp4))
+        with open(mp4, "rb") as fh:
+            out["tc_mp4"] = arr(fh.read())
+    out["tc_default_out"] = arr(jtc.transcode(src, *ttc.DST))
+    out["tf_out"] = arr(jtc.transcode_frames(ttc.clip_frames(), *ttc.DST,
+                                             ttc.out_params()))
+    dec = JDecoder()
+    dec.decode(src)
+    for prefix, frames in (("tc", [(f.y, f.u, f.v)
+                                   for f in dec.display_order()]),
+                           ("tf", ttc.clip_frames())):
+        for i, planes in enumerate(frames):
+            for p, a in zip("yuv", jscale(*planes, *ttc.DST)):
+                out[f"{prefix}_{i}_{p}"] = np.asarray(a, np.uint8)
+    enc = TpuEncoder(JConfig(**the.HE_CFG))
+    enc.host_entropy = True
+    out["he_stream"] = arr(b"".join(enc.encode_frame(*f)
+                                    for f in the.he_frames()))
+    return out
+
+
 MULTIREF_PARTS = {"units": multiref_units, "converted": multiref_converted,
                   **{name: (lambda name=name: multiref_session(name))
                      for name in tmr.LINES}}
@@ -716,7 +797,8 @@ def multiref_refs(digest) -> dict:
 MAKERS = {"live": live_refs, "l3": l3_refs, "l4": l4_refs,
           "core": core_refs, "batched": batched_refs, "calls": calls_refs,
           "multiref": multiref_refs, "units": units_refs,
-          "surface": surface_refs, "decode": decode_refs}
+          "surface": surface_refs, "decode": decode_refs,
+          "parallel": parallel_refs}
 
 
 def main() -> int:

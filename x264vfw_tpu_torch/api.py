@@ -31,11 +31,16 @@ SUPPORTED_INPUT_FORMATS: anything but I420 is converted on the session's
 device (ops/csp.py).  The muxer follows the output's extension: raw
 Annex-B, Matroska, MP4, FLV or AVI (output/).
 
-A session owns one device, so it routes as the JAX package does when it
-sees one: a zero-latency session (no B frames, no MB-tree, --tune
-zerolatency), one with --threads 1 or one that measures (--psnr/--ssim
-at log level 2 or more) encodes frame by frame; any other, --threads N >
-1 among them, goes through the batched pipeline (encode/pipeline.py,
+A session routes as the JAX package does: with --threads N > 1 over
+more than one device (devices=, by default every visible CUDA device of
+a CUDA session and the session's own device on the CPU) and not
+measuring, it encodes closed GOPs of min(keyint, 32) frames spread over
+the devices (parallel/gop.py), after a loud downgrade to bframes 0,
+ref 1, weightp 0, no MB-tree and no scene cuts; otherwise a zero-latency
+session (no B frames, no MB-tree, --tune zerolatency), one with
+--threads 1 or one that measures (--psnr/--ssim at log level 2 or more)
+encodes frame by frame, and any other, --threads N > 1 on one device
+among them, goes through the batched pipeline (encode/pipeline.py,
 windows of 12 frames).  Measuring, the session keeps each source frame
 until its AU comes out, then logs its PSNR/SSIM against the encoder's
 reconstruction and sums them for end().
@@ -56,7 +61,7 @@ from .encode.ref_encoder import EncoderConfig
 from .encode.ratecontrol import RateController
 from .encode.torch_encoder import TorchEncoder
 from .output.base import MuxParams, Muxer, select_muxer
-from .utils.device import resolve_device
+from .utils.device import resolve_device, resolve_devices
 from .utils.logging import Logger
 
 #: input formats compress() takes
@@ -98,7 +103,13 @@ def _p_partitions(p: EncoderParams) -> bool:
 
 class CompressSession:
     def __init__(self, params: EncoderParams | None = None,
-                 extra_cmdline: str = "", device=None) -> None:
+                 extra_cmdline: str = "", device=None,
+                 devices=None) -> None:
+        """device: the session's device (CUDA unless named).  devices: the
+        GOP-parallel route's device list for --threads N > 1, by default
+        every visible CUDA device of a CUDA session, [device] on the
+        CPU; the route is taken only when it holds more than one entry
+        (the same device may repeat)."""
         p = params.copy() if params else EncoderParams()
         self.warnings: list[str] = []
         if extra_cmdline:
@@ -106,11 +117,16 @@ class CompressSession:
             self.warnings += warns
         self.params = p
         self.device = resolve_device(device)
+        if devices is None and self.device.type != "cuda":
+            devices = [self.device]
+        self.devices = resolve_devices(devices)
         self.log = Logger(p.log_level)
         for w in self.warnings:
             self.log.warning(w)
         self.encoder: TorchEncoder | None = None
         self._pipe = None          # BatchPipeline when the session batches
+        self._shard = False        # GopShardPipeline in _pipe: GOPs over
+        #                            several devices
         self.mbtree = None         # encode/lookahead.MBTree with --mbtree
         self.muxer: Muxer | None = None
         self.error = False         # sticky b_encoder_error
@@ -135,6 +151,32 @@ class CompressSession:
         self.rc = RateController(p)
         qp = self.rc.qp_for_frame(True)
         bframes = min(p.bframes, 16)
+        # PSNR/SSIM telemetry: as in the reference, measured only with the
+        # flags AND log level >= info (codec.c:1558-1559); it pulls each
+        # frame's recon to the host, so the session runs per frame
+        self._measure = bool((p.psnr or p.ssim) and p.log_level >= 2)
+        # --threads N > 1 over several devices: GOP data parallelism (the
+        # reference's frame-threading knob, codec.c:933-943), whose
+        # feature set is bframes 0, ref 1, weightp 0, no lookahead; more
+        # is downgraded with a warning, not silently
+        self._shard = (p.threads > 1 and len(self.devices) > 1
+                       and not self._measure)
+        if self._shard:
+            for name, on in (("bframes", bframes > 0), ("ref", p.ref > 1),
+                             ("weightp", p.weightp > 0),
+                             ("mbtree", bool(p.mbtree)),
+                             ("scenecut", p.scenecut > 0)):
+                if on:
+                    self.log.warning(
+                        f"--threads {p.threads} (sharded GOP mode) does "
+                        f"not support {name}; disabling it")
+            bframes = 0
+            p = p.copy()
+            p.ref = 1
+            p.weightp = 0
+            p.mbtree = False
+            p.scenecut = 0
+            self.params = p
         if _p_partitions(p) and p.ref > 1:
             self.log.warning(
                 "P partitions are searched per 8x8 block with a single "
@@ -182,10 +224,6 @@ class CompressSession:
         ), device=self.device)
         self._encode_idx = 0
         self._delay = 1 if bframes else 0
-        # PSNR/SSIM telemetry: as in the reference, measured only with the
-        # flags AND log level >= info (codec.c:1558-1559); it pulls each
-        # frame's recon to the host, so the session runs per frame
-        self._measure = bool((p.psnr or p.ssim) and p.log_level >= 2)
         self.encoder.measure = self._measure
         self._src_q: dict[int, tuple] = {}
         self._disp_idx = 0
@@ -201,14 +239,18 @@ class CompressSession:
             self.mbtree = MBTree((width + 15) // 16, (height + 15) // 16,
                                  lookahead=min(p.rc_lookahead, 60),
                                  qcomp=p.qcomp)
-        # the batched pipeline unless the session is zero-latency (no B
-        # frames, no MB-tree, --tune zerolatency's sync_lookahead 0),
-        # --threads 1 or measuring, which keep the per-frame path; one
-        # device, so --threads N > 1 batches (the JAX package shards GOPs
-        # only over several devices)
+        # the GOP-parallel pipeline when sharding; else the batched one
+        # unless the session is zero-latency (no B frames, no MB-tree,
+        # --tune zerolatency's sync_lookahead 0), --threads 1 or
+        # measuring, which keep the per-frame path
         zero_latency = (p.bframes == 0 and not p.mbtree
                         and p.sync_lookahead == 0)
-        if not self._measure and p.threads != 1 and not zero_latency:
+        if self._shard:
+            from .parallel.gop import GopShardPipeline
+            self._pipe = GopShardPipeline(self.encoder, self.rc,
+                                          devices=self.devices,
+                                          gop_len=min(p.keyint, 32))
+        elif not self._measure and p.threads != 1 and not zero_latency:
             from .encode.pipeline import BatchPipeline
             self._pipe = BatchPipeline(self.encoder, self.rc,
                                        mbtree=self.mbtree, window=12)
@@ -392,7 +434,11 @@ class CompressSession:
     def frames_info(self) -> FramesInfo:
         """The most frames an input can wait before its AU comes out: the
         B frames, MB-tree's lookahead and, batched, the double-buffered
-        windows (one full window in the queue plus one in flight)."""
+        windows (one full window in the queue plus one in flight); in
+        the GOP-parallel route one GOP per device less one frame (the
+        JAX package raises AttributeError there)."""
+        if self._shard:
+            return FramesInfo(delay=self._pipe.delay)
         p = self.params
         look = (min(p.rc_lookahead, 60)
                 if p.mbtree and p.rc_lookahead > 0 else 0)

@@ -23,7 +23,11 @@ pack_batch_rows and encodes IDRs, the anchors that fill the DPB, tail
 anchors and tail B frames with encode_frame and _encode_b.  With measure
 on (the session's --psnr/--ssim) each frame's recon, a B frame's from
 encode_b_slots(want_recon=True), stays on the device per display index
-until the session takes it with pop_recon.
+until the session takes it with pop_recon.  With host_entropy on (the
+JAX package's reference / debug path: CAVLC, no loop filter, no weighted
+prediction) encode_frame runs the I or P core alone, pulls its syntax
+tensors and writes the slice on the host with the numpy coder
+(bitstream/cavlc_vec.py): _finalize_i, _finalize_p.
 
 Header conventions (SPS profile/level/DPB size, PPS, slice headers,
 version SEI) are the JAX package's, byte for byte.
@@ -36,16 +40,20 @@ import time
 import numpy as np
 import torch
 
-from ..bitstream.mb_syntax import SLICE_B, SLICE_I, SLICE_P
+from ..bitstream import cavlc_vec
+from ..bitstream.mb_syntax import CBP_TO_CODE, SLICE_B, SLICE_I, SLICE_P
 from ..bitstream.nal import NAL_PPS, NAL_SLICE, NAL_SLICE_IDR, NAL_SPS, wrap_nal
 from ..bitstream.params import (PPS, SPS, PROFILE_BASELINE, PROFILE_HIGH,
                                 PROFILE_MAIN)
 from ..bitstream.slice import SliceHeader
 from ..ops import tables
-from ..utils.bitstream import BitWriter
+from ..utils.bitstream import BitWriter, se_codes, ue_codes
 from ..utils.device import resolve_device
 from . import device_finalize
+from .device_finalize import BLK_X, BLK_Y
 from .ref_encoder import EncoderConfig
+
+S = cavlc_vec.SLOTS
 
 
 class TorchEncoder:
@@ -123,6 +131,9 @@ class TorchEncoder:
         self.qp = cfg.qp
         self.qpc = int(tables.chroma_qp(cfg.qp, self.pps.chroma_qp_index_offset))
         self._i_full = None            # I-frame phase 1 for this geometry
+        # host_entropy: the numpy finalisation (reference / debug, CAVLC
+        # only); off, the whole entropy stage stays on the device
+        self.host_entropy = False
         # PSNR/SSIM telemetry (the reference's b_psnr/b_ssim, codec.c:
         # 1558-1559): with measure on, each frame's recon is kept on the
         # device per display index until the session pops it; off, no
@@ -307,6 +318,11 @@ class TorchEncoder:
         """Encode one I or P frame (an IDR when force_idr, or at keyint
         without it); qp_off: MB-tree's per-MB QP offsets of a P frame."""
         cfg = self.cfg
+        if cfg.cabac and self.host_entropy:
+            # the JAX package sends this to its pure-Python CABAC coder,
+            # which has no counterpart
+            raise NotImplementedError("host_entropy writes CAVLC slices "
+                                      "only; use --no-cabac")
         H, W = self.mbh * 16, self.mbw * 16
         is_idr = (self.frame_idx % cfg.keyint) == 0 or self.ref is None
         if force_idr is not None:
@@ -315,6 +331,12 @@ class TorchEncoder:
             self.qp = int(min(max(qp, 0), 51))
             self.qpc = int(tables.chroma_qp(self.qp,
                                             self.pps.chroma_qp_index_offset))
+        if self.host_entropy:
+            assert not cfg.deblock, "host_entropy debug path has no deblock"
+            assert cfg.weightp == 0, "host_entropy debug path has no weightp"
+            return self._wrap_frame(*self._host_entropy_frame(y, u, v,
+                                                              is_idr),
+                                    is_idr)
         # one uint8 upload, one fused device phase, one pull
         src_d = torch.from_numpy(self.pack_batch_rows([(y, u, v)])[0]) \
             .to(self.device)
@@ -360,6 +382,11 @@ class TorchEncoder:
         self.ref = (ry, ru, rv)
         if self.nref > 1:
             self.dpb = ([self.ref] + ([] if is_idr else self.dpb))[:self.nref]
+        return self._wrap_frame(payload, nal_type, is_idr)
+
+    def _wrap_frame(self, payload, nal_type: int, is_idr: bool) -> bytes:
+        """The I or P slice's AU (headers first at an IDR); advances the
+        frame counters."""
         bs = b""
         if is_idr:
             bs += self.headers()
@@ -370,6 +397,166 @@ class TorchEncoder:
         if is_idr:
             self.idr_id = (self.idr_id + 1) % 65536
         return bs
+
+    # -- host_entropy: the numpy finalisation -----------------------------
+    def _host_entropy_frame(self, y, u, v, is_idr: bool):
+        """The I or P core alone (P16x16 from the last reference, none of
+        AQ, trellis, partitions or the 8x8 transform, as in the JAX
+        package), its syntax tensors finalised on the host.  Returns
+        (slice RBSP, NAL unit type)."""
+        from .device import encode_i_frame_core, encode_p_frame_core
+        cfg = self.cfg
+        H, W = self.mbh * 16, self.mbw * 16
+        sy, su, sv = (torch.as_tensor(np.ascontiguousarray(
+            _pad(p, H // k, W // k), dtype=np.int32), device=self.device)
+            for p, k in ((y, 1), (u, 2), (v, 2)))
+        if is_idr:
+            self.frame_num = 0
+            out = encode_i_frame_core(sy, su, sv, self.qp, self.qpc)
+            payload, nal_type = self._finalize_i(out), NAL_SLICE_IDR
+        else:
+            out = encode_p_frame_core(sy, su, sv, *self.ref, self.qp,
+                                      self.qpc, rng=cfg.search_range,
+                                      subpel=cfg.subpel,
+                                      me_backend=cfg.me_backend)
+            payload, nal_type = self._finalize_p(out), NAL_SLICE
+        self.ref = (out["recon_y"], out["recon_u"], out["recon_v"])
+        return payload, nal_type
+
+    def _nc_luma_map(self, tc_blk: np.ndarray) -> np.ndarray:
+        """tc_blk: (nMB, 16) total coeffs in block coding order ->
+        nC per block (nMB, 16)."""
+        mbh, mbw = self.mbh, self.mbw
+        tcm = np.zeros((mbh * 4, mbw * 4), dtype=np.int64)
+        gy = (np.arange(mbh * mbw) // mbw * 4)[:, None] + BLK_Y[None, :]
+        gx = (np.arange(mbh * mbw) % mbw * 4)[:, None] + BLK_X[None, :]
+        tcm[gy, gx] = tc_blk
+        nc = _nc_from_map(tcm)
+        return nc[gy, gx]
+
+    def _nc_chroma_map(self, tc_c: np.ndarray) -> np.ndarray:
+        """tc_c: (nMB, 4) per chroma sub-block (raster) -> nC (nMB, 4)."""
+        mbh, mbw = self.mbh, self.mbw
+        sbx = np.array([0, 1, 0, 1])
+        sby = np.array([0, 0, 1, 1])
+        tcm = np.zeros((mbh * 2, mbw * 2), dtype=np.int64)
+        gy = (np.arange(mbh * mbw) // mbw * 2)[:, None] + sby[None, :]
+        gx = (np.arange(mbh * mbw) % mbw * 2)[:, None] + sbx[None, :]
+        tcm[gy, gx] = tc_c
+        nc = _nc_from_map(tcm)
+        return nc[gy, gx]
+
+    def _chroma_codes(self, out, n: int, cbp_chroma: np.ndarray):
+        """Chroma DC and AC slot arrays of n MBs, masked by cbp_chroma:
+        (vals, lens) of DC u, DC v, AC u (n, 4*S), AC v."""
+        dc_u, dc_v, ac_u, ac_v = (_host(out[k]) for k in ("dc_u", "dc_v",
+                                                          "ac_u", "ac_v"))
+        dc_u, dc_v = dc_u.reshape(n, 4), dc_v.reshape(n, 4)
+        has_cdc = (cbp_chroma >= 1)[:, None]
+        has_cac = (cbp_chroma == 2)[:, None, None]
+        ac_u = np.where(has_cac, ac_u, 0)
+        ac_v = np.where(has_cac, ac_v, 0)
+        dc_u = np.where(has_cdc, dc_u, 0)
+        dc_v = np.where(has_cdc, dc_v, 0)
+        nc_cu = self._nc_chroma_map(np.count_nonzero(ac_u, axis=-1))
+        nc_cv = self._nc_chroma_map(np.count_nonzero(ac_v, axis=-1))
+        vcdu, lcdu = cavlc_vec.encode_blocks(dc_u, np.full(n, -1), 4)
+        vcdv, lcdv = cavlc_vec.encode_blocks(dc_v, np.full(n, -1), 4)
+        lcdu = np.where(has_cdc, lcdu, 0)
+        lcdv = np.where(has_cdc, lcdv, 0)
+        vcau, lcau = cavlc_vec.encode_blocks(ac_u.reshape(-1, 15),
+                                             nc_cu.reshape(-1), 15)
+        vcav, lcav = cavlc_vec.encode_blocks(ac_v.reshape(-1, 15),
+                                             nc_cv.reshape(-1), 15)
+        lcau = np.where(has_cac, lcau.reshape(n, 4, S), 0).reshape(n, -1)
+        lcav = np.where(has_cac, lcav.reshape(n, 4, S), 0).reshape(n, -1)
+        return ((vcdu, vcdv, vcau.reshape(n, -1), vcav.reshape(n, -1)),
+                (lcdu, lcdv, lcau, lcav))
+
+    def _finalize_i(self, out) -> np.ndarray:
+        """I16x16 syntax tensors -> the IDR slice RBSP (host CAVLC)."""
+        n = self.mbh * self.mbw
+        dc = _host(out["dc"])                  # (n, 16)
+        ac = _host(out["ac"])                  # (n, 16, 15)
+        cbp_luma_nz = _host(out["cbp_luma_nz"])
+        cbp_chroma = _host(out["cbp_chroma"])
+        mb_type = (1 + _host(out["i16_mode"]) + 4 * cbp_chroma
+                   + 12 * cbp_luma_nz)
+        # AC only when cbp_luma != 0 (the device's levels are 0 there)
+        ac = np.where(cbp_luma_nz[:, None, None], ac, 0)
+        nc_l = self._nc_luma_map(np.count_nonzero(ac, axis=-1))
+        vdc, ldc = cavlc_vec.encode_blocks(dc, nc_l[:, 0], 16)
+        vac, lac = cavlc_vec.encode_blocks(ac.reshape(-1, 15),
+                                           nc_l.reshape(-1), 15)
+        lac = np.where(cbp_luma_nz[:, None, None], lac.reshape(n, 16, S), 0)
+        cv, cl = self._chroma_codes(out, n, cbp_chroma)
+        # MB header: mb_type ue, intra_chroma_pred_mode ue, mb_qp_delta
+        # se(0)
+        hv = np.zeros((n, 3), dtype=np.uint32)
+        hl = np.zeros((n, 3), dtype=np.int8)
+        hv[:, 0], hl[:, 0] = ue_codes(mb_type)
+        hv[:, 1], hl[:, 1] = ue_codes(_host(out["cmode"]))
+        hv[:, 2], hl[:, 2] = 1, 1
+        vals = np.concatenate([hv, vdc, vac.reshape(n, -1), *cv], axis=1)
+        lens = np.concatenate([hl, ldc, lac.reshape(n, -1), *cl], axis=1)
+        w = self._slice_header_codes(SLICE_I, NAL_SLICE_IDR)
+        w.write_codes(vals.astype(np.uint64).ravel(),
+                      lens.astype(np.int64).ravel())
+        w.rbsp_trailing_bits()
+        return w.to_rbsp()
+
+    def _finalize_p(self, out) -> np.ndarray:
+        """P16x16 syntax tensors -> the P slice RBSP (host CAVLC): the
+        median MV prediction and P_Skip decision, skip runs, the
+        residual masked by the coded block pattern."""
+        n = self.mbh * self.mbw
+        mv = _host(out["mv"]).reshape(self.mbh, self.mbw, 2)   # quarter pel
+        levels = _host(out["levels"])                          # (n, 16, 16)
+        cbp_luma = _host(out["cbp_luma"])
+        cbp_chroma = _host(out["cbp_chroma"])
+        cbp = (cbp_luma | (cbp_chroma << 4)).astype(np.int64)
+        pmv, pmv_skip_zero = _p16_mv_pred(mv)
+        mv_flat = mv.reshape(n, 2)
+        skip = ((cbp == 0) & (mv_flat == 0).all(axis=1)
+                & pmv_skip_zero.reshape(n))
+        mvd = mv_flat - pmv.reshape(n, 2)
+        # skip runs: consecutive skips before each coded MB, then the
+        # trailing run
+        nonskip_idx = np.nonzero(~skip)[0]
+        runs = np.zeros(n, dtype=np.int64)
+        if nonskip_idx.size:
+            prev = np.concatenate([[-1], nonskip_idx[:-1]])
+            runs[nonskip_idx] = nonskip_idx - prev - 1
+        trailing = n - 1 - (nonskip_idx[-1] if nonskip_idx.size else -1)
+        quad_coded = ((cbp_luma[:, None] >> (np.arange(16) // 4)) & 1) \
+            .astype(bool)
+        levels = np.where(quad_coded[:, :, None], levels, 0)
+        nc_l = self._nc_luma_map(np.count_nonzero(levels, axis=-1))
+        vlu, llu = cavlc_vec.encode_blocks(levels.reshape(-1, 16),
+                                           nc_l.reshape(-1), 16)
+        llu = np.where(quad_coded[:, :, None], llu.reshape(n, 16, S), 0)
+        cv, cl = self._chroma_codes(out, n, cbp_chroma)
+        # MB header: mb_skip_run, mb_type P_L0_16x16 (ue 0), mvd x and y,
+        # coded_block_pattern, mb_qp_delta se(0) when cbp != 0
+        hv = np.zeros((n, 6), dtype=np.uint32)
+        hl = np.zeros((n, 6), dtype=np.int8)
+        hv[:, 0], hl[:, 0] = ue_codes(runs)
+        hv[:, 1], hl[:, 1] = 1, 1
+        hv[:, 2], hl[:, 2] = se_codes(mvd[:, 0])
+        hv[:, 3], hl[:, 3] = se_codes(mvd[:, 1])
+        hv[:, 4], hl[:, 4] = ue_codes(CBP_TO_CODE[0, cbp])
+        hv[:, 5] = 1
+        hl[:, 5] = np.where(cbp != 0, 1, 0)
+        vals = np.concatenate([hv, vlu.reshape(n, -1), *cv], axis=1)
+        lens = np.concatenate([hl, llu.reshape(n, -1), *cl], axis=1)
+        lens = np.where(skip[:, None], 0, lens)
+        w = self._slice_header_codes(SLICE_P, NAL_SLICE)
+        w.write_codes(vals.astype(np.uint64).ravel(),
+                      lens.astype(np.int64).ravel())
+        if trailing > 0:
+            w.ue(int(trailing))
+        w.rbsp_trailing_bits()
+        return w.to_rbsp()
 
     def stacked_dpb(self) -> tuple:
         """The DPB's first _cur_nref entries as (R, H, W) y, u and v
@@ -470,6 +657,72 @@ class TorchEncoder:
             h.luma_weights_l0 = [self._wp] * self._cur_nref
         h.write(w, self.sps, self.pps, nal_type, nal_ref_idc)
         return w
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+def _nc_from_map(tcm: np.ndarray) -> np.ndarray:
+    """Neighbour-averaged nC from a total-coeff map (availability = frame
+    edge)."""
+    tA = np.zeros_like(tcm)
+    tA[:, 1:] = tcm[:, :-1]
+    tB = np.zeros_like(tcm)
+    tB[1:, :] = tcm[:-1, :]
+    availA = np.zeros(tcm.shape, dtype=bool)
+    availA[:, 1:] = True
+    availB = np.zeros(tcm.shape, dtype=bool)
+    availB[1:, :] = True
+    return np.where(availA & availB, (tA + tB + 1) >> 1,
+                    np.where(availA, tA, np.where(availB, tB, 0)))
+
+
+def _p16_mv_pred(mv: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Median MV prediction for an all-P16x16 frame (§8.4.1.3) and the
+    'pmv_skip forces zero' flag (§8.4.1.1).
+
+    mv: (mbh, mbw, 2).  Returns (pmv (mbh, mbw, 2), skip_zero (mbh, mbw)
+    bool)."""
+    mbh, mbw, _ = mv.shape
+    zeros = np.zeros_like(mv)
+
+    def shift(arr, dy, dx):
+        out = np.zeros_like(arr)
+        ys = slice(max(dy, 0), mbh + min(dy, 0))
+        xs = slice(max(dx, 0), mbw + min(dx, 0))
+        yd = slice(max(-dy, 0), mbh + min(-dy, 0))
+        xd = slice(max(-dx, 0), mbw + min(-dx, 0))
+        out[yd, xd] = arr[ys, xs]
+        return out
+
+    mvA = shift(mv, 0, -1)   # out[y, x] = mv[y, x - 1] (left)
+    mvB = shift(mv, -1, 0)   # above
+    mvC = shift(mv, -1, 1)   # above right
+    mvD = shift(mv, -1, -1)  # above left
+    yy, xx = np.mgrid[0:mbh, 0:mbw]
+    availA = xx > 0
+    availB = yy > 0
+    availC_raw = (yy > 0) & (xx < mbw - 1)
+    availD = (yy > 0) & (xx > 0)
+    mvC_eff = np.where(availC_raw[..., None], mvC, mvD)
+    availC = availC_raw | availD
+    only_a = availA & ~availB & ~availC
+    nmatch = availA.astype(int) + availB.astype(int) + availC.astype(int)
+    mA = np.where(availA[..., None], mvA, zeros)
+    mB = np.where(availB[..., None], mvB, zeros)
+    mC = np.where(availC[..., None], mvC_eff, zeros)
+    med = np.median(np.stack([mA, mB, mC]), axis=0).astype(np.int64)
+    one = np.where(availA[..., None], mvA,
+                   np.where(availB[..., None], mvB, mvC_eff))
+    pmv = np.where(only_a[..., None], mvA,
+                   np.where((nmatch == 1)[..., None], one, med)) \
+        .astype(np.int64)
+    zeroA = availA & (mvA == 0).all(-1)
+    zeroB = availB & (mvB == 0).all(-1)
+    skip_cond = (~availA) | (~availB) | zeroA | zeroB
+    pmv_skip = np.where(skip_cond[..., None], 0, pmv)
+    return pmv, (pmv_skip == 0).all(-1)
 
 
 def _pad(a: np.ndarray, H: int, W: int) -> np.ndarray:

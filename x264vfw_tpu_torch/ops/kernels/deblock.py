@@ -104,9 +104,10 @@ def deblock_apply(y, u, v, mapsV, mapsH, mapsVc, mapsHc):
     progress = torch.zeros(scratch_ints(H), dtype=torch.int32,
                            device=y.device)
     stream = torch.cuda.current_stream(y.device).cuda_stream
-    rc = launch(oy.data_ptr(), ou.data_ptr(), ov.data_ptr(), H, W,
-                mapsV.data_ptr(), mapsH.data_ptr(), mapsVc.data_ptr(),
-                mapsHc.data_ptr(), progress.data_ptr(), stream)
+    with torch.cuda.device(y.device):        # the launch's CUDA context
+        rc = launch(oy.data_ptr(), ou.data_ptr(), ov.data_ptr(), H, W,
+                    mapsV.data_ptr(), mapsH.data_ptr(), mapsVc.data_ptr(),
+                    mapsHc.data_ptr(), progress.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"deblock_apply launch failed: CUDA error {rc}")
     LAUNCHES += 1

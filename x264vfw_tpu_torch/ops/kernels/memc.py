@@ -103,9 +103,10 @@ def partition_refine_mc(src, ref_pad, mv8i, part, R: int, sub_lv: int = 2):
                       device=src.device)
     pred = torch.empty(H, W, dtype=torch.int32, device=src.device)
     stream = torch.cuda.current_stream(src.device).cuda_stream
-    rc = _kernel()(src.data_ptr(), ref_pad.data_ptr(), mv8i.data_ptr(),
-                   part.data_ptr(), H, W, R, sub_lv, mv8.data_ptr(),
-                   pred.data_ptr(), stream)
+    with torch.cuda.device(src.device):      # the launch's CUDA context
+        rc = _kernel()(src.data_ptr(), ref_pad.data_ptr(), mv8i.data_ptr(),
+                       part.data_ptr(), H, W, R, sub_lv, mv8.data_ptr(),
+                       pred.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"partition_refine_mc launch failed: CUDA "
                            f"error {rc}")

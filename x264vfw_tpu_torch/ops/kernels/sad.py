@@ -138,9 +138,10 @@ def sad_partition_minima(src_y: torch.Tensor, ref_pad: torch.Tensor, R: int,
     out = {k: torch.empty(s, dtype=torch.int32, device=src_y.device)
            for k, s in _out_shapes(H // 16, W // 16).items()}
     stream = torch.cuda.current_stream(src_y.device).cuda_stream
-    rc = _kernel()(src_y.data_ptr(), ref_pad.data_ptr(), H, W, R,
-                   *(int(s) for s in scales),
-                   *(out[k].data_ptr() for k in NAMES), stream)
+    with torch.cuda.device(src_y.device):    # the launch's CUDA context
+        rc = _kernel()(src_y.data_ptr(), ref_pad.data_ptr(), H, W, R,
+                       *(int(s) for s in scales),
+                       *(out[k].data_ptr() for k in NAMES), stream)
     if rc != 0:
         raise RuntimeError(f"sad_partition_minima launch failed: CUDA "
                            f"error {rc}")
@@ -199,8 +200,9 @@ def sad_search_quad(src_y: torch.Tensor, ref_pad: torch.Tensor,
     out = torch.empty(K * K, H // 8, W // 8, dtype=torch.int32,
                       device=src_y.device)
     stream = torch.cuda.current_stream(src_y.device).cuda_stream
-    rc = _kernel(quad=True)(src_y.data_ptr(), ref_pad.data_ptr(), H, W, R,
-                            out.data_ptr(), stream)
+    with torch.cuda.device(src_y.device):
+        rc = _kernel(quad=True)(src_y.data_ptr(), ref_pad.data_ptr(), H, W,
+                                R, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"sad_search_quad launch failed: CUDA error {rc}")
     LAUNCHES += 1
