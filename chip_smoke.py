@@ -60,9 +60,13 @@ CPU and requires identical bytes (for the veryfast and superfast lines
 with --min-keyint 2, on a clip with a fade and a scene cut; the B-frame
 lines on 30 frames with the cut inside a window, which drains pending B
 frames as a tail, and veryfast also with --threads 1; the default
-session, --preset faster and slow, and --preset medium --threads 1 on
-that clip too, and --preset medium --tune zerolatency, also with --me
-esa, whose SAD launches are counted, on 8 frames with a cut at 5), and
+session, --preset faster and slow, --preset fast, slower and veryslow,
+and --preset medium --threads 1 on that clip too, --preset placebo on
+PLACEBO_FRAMES frames of one scene, and --preset medium --tune
+zerolatency, also with --me esa, whose SAD launches are counted, on 8
+frames with a cut at 5; and the syntax-tensor CABAC route in
+tests/test_cabac_transcode.py's four configurations, also equal to the
+card's transcode route), and
 four lines that go through input conversion, a container and the
 telemetry (BGRA to Matroska with --psnr --ssim, NV12 to MP4, YUYV to FLV
 with --threads 4, RGB24 to AVI), whose files and end() stats must be
@@ -90,7 +94,17 @@ equal to the per-frame encoder; session_1080p_threads: the default
 session with --threads 4 --keyint 4, its five downgrade warnings, 2
 IDRs); and card against CPU at the small size for
 encode_clip_gop_parallel, the sharded session (also equal to --threads
-1 with the downgraded options) and the transcode.  Last, the command
+1 with the downgraded options) and the transcode.  Then x264's --preset
+placebo at 1080p (placebo_1080p: 74 frames of one moving texture, 1
+IDR, 5 P anchors over 1, 2, 3, 4 and 4 references, 68 B frames, the
+first B run waiting across the first window; the SAD kernel once per
+reference of each anchor and twice per B frame, and held against its
+plain version on a B frame's L0 and L1 inputs and on the fourth
+reference of anchor 68), and the syntax-tensor CABAC route at 1080p
+(host_cabac_1080p: TorchEncoder.host_entropy with --cabac, whose access
+units must equal the transcode route's, in the full-feature and the
+B-frame configuration of tests/test_cabac_transcode.py, the C coder's
+ms per slice printed).  Last, the command
 line (x264vfw_tpu_torch/cli.py) encodes a Y4M file to MP4 on the card,
 equal to a CompressSession's file.
 Each kernel's launch count is set to 0 just before a session and read
@@ -190,6 +204,33 @@ SHARD_WARNED = ["bframes", "ref", "weightp", "mbtree", "scenecut"]
 CMDLINE_THREADS_CQP = CMDLINE_THREADS + " --qp 26"
 CMDLINE_THREADS_1 = ("--threads 1 --keyint 4 --qp 26 --bframes 0 --ref 1 "
                      "--weightp 0 --no-mbtree --scenecut 0")
+# x264's last four presets.  placebo at 1080p over PLACEBO_FRAMES frames
+# of one scene: with MB-tree's lookahead of 60 the batched session's
+# first window of 12 goes out after 72 frames, so B candidates 1-11 wait
+# across it; an anchor after every 16 B candidates (17, 34, 51 encoded
+# per frame while the DPB fills, 68 batched over 4 references) and a
+# tail anchor (73) after a part-filled B run.  On the card-vs-CPU clip
+# the other three with --min-keyint 2, and placebo over the same count
+CMDLINE_PLACEBO = "--preset placebo"
+PRESET_LINES = ("--preset fast", "--preset slower", "--preset veryslow")
+PLACEBO_FRAMES = 74
+# the syntax-tensor CABAC route (TorchEncoder.host_entropy with --cabac)
+# on tests/test_cabac_transcode.py's configurations: the four on the
+# card-vs-CPU clip (HOST_CABAC_FRAMES frames), and at 1080p the
+# full-feature one (the exhaustive search, P partitions, I4x4, AQ,
+# trellis) and the B-frame one, each over (frames, launches)
+HOST_CABAC = {
+    "basic": dict(qp=28, keyint=4, deblock=True),
+    "full-feature": dict(qp=30, keyint=8, deblock=True, aq_strength=1.0,
+                         trellis=True, i4x4=True, partitions=True),
+    "multiref": dict(qp=30, keyint=8, deblock=True, num_ref_frames=3),
+    "bframes": dict(qp=30, keyint=8, deblock=True, bframes=2)}
+HOST_CABAC_FRAMES = 6
+# full-feature: I + 4 P, SAD and memc once per P frame; bframes: I, P, B,
+# B, then the flush's tail P and B: SAD once per P and twice per B
+HOST_CABAC_1080P = {
+    "full-feature": (5, {"sad": 4, "memc": 4, "deblock": 5}),
+    "bframes": (6, {"sad": 8, "memc": 0, "deblock": 3})}
 DEV = "cuda"
 KERNELS = ("sad", "memc", "deblock")
 SESSION_SIZE = (1920, 1080)            # the main paths' geometry
@@ -595,6 +636,18 @@ def deblock_case(mbh: int, mbw: int, seed: int, dev):
     maps = build_maps(*(torch.as_tensor(a, device=dev) for a in meta),
                       offA, offB, 0)
     return planes, [m.contiguous() for m in maps]
+
+
+def placebo_schedule(n: int):
+    """(P anchors, references each one searches, B frames) of --preset
+    placebo over n frames of one scene: an anchor after every 16 B
+    candidates, the last frame a tail anchor over the pending rest, the
+    DPB filling by one per anchor up to 4 references."""
+    anchors = list(range(17, n, 17))
+    if (n - 1) % 17:
+        anchors.append(n - 1)
+    refs = [min(i + 1, 4) for i in range(len(anchors))]
+    return anchors, refs, n - 1 - len(anchors)
 
 
 def split_aus(stream: bytes) -> list:
@@ -1599,6 +1652,7 @@ def main() -> int:
                            fade_from=B_FRAMES - 4)
         live_m = live_clip(*SMALL_SIZE, M_FRAMES, seed=25, cut_at=M_CUT,
                            fade_from=M_FRAMES - 2)
+        placebo_small = moving_clip(*SMALL_SIZE, PLACEBO_FRAMES, seed=19)
         # (command line, clip, display indices of the IDRs)
         lines = ((CMDLINE, small[:4], None), (CMDLINE_PARTS, small[:4], None),
                  (CMDLINE_L3, small, None), (CMDLINE_L4, small[:4], None),
@@ -1617,7 +1671,11 @@ def main() -> int:
                  (CMDLINE_MZL + " --min-keyint 2 --me esa", live_m,
                   [0, M_CUT]),
                  ("--preset medium --min-keyint 2 --threads 1", live_b,
-                  [0, B_CUT]))
+                  [0, B_CUT]),
+                 # x264's last four presets (placebo's clip has no cut)
+                 *((cmd + " --min-keyint 2", live_b, [0, B_CUT])
+                   for cmd in PRESET_LINES),
+                 (CMDLINE_PLACEBO, placebo_small, [0]))
         esa_cmd = CMDLINE_MZL + " --min-keyint 2 --me esa"
         sizes, idrs = {}, {}
         for cmd, clip_s, want_idr in lines:
@@ -1684,6 +1742,25 @@ def main() -> int:
         from x264vfw_tpu_torch.encode.ref_encoder import EncoderConfig
         from x264vfw_tpu_torch.parallel import gop as gopm
         from x264vfw_tpu_torch.parallel import transcode as tcm
+        # the syntax-tensor CABAC route (I, P with partitions, three
+        # references, B) on the card and on the CPU, and the card's
+        # transcode route: one stream
+        clip_hc = moving_clip(*SMALL_SIZE, HOST_CABAC_FRAMES, seed=20)
+        for name, kw in HOST_CABAC.items():
+            got = {}
+            for d, host in dict.fromkeys(((DEV, True), ("cpu", True),
+                                          (DEV, False))):
+                e = TorchEncoder(EncoderConfig(
+                    width=SMALL_SIZE[0], height=SMALL_SIZE[1], cabac=True,
+                    **kw), device=d)
+                e.host_entropy = host
+                got[d, host] = b"".join(
+                    [au for f in clip_hc for au, *_ in e.push_frame(*f)]
+                    + [au for au, *_ in e.flush()])
+            check(len(set(got.values())) == 1, f"host CABAC {name}: the "
+                  "card's, the CPU's and the transcode route's streams "
+                  f"differ at {SMALL_SIZE}")
+            sizes[f"host CABAC {name}"] = len(got[DEV, True])
         cfg_s = EncoderConfig(width=SMALL_SIZE[0], height=SMALL_SIZE[1],
                               qp=26, keyint=GOP_LEN, search_range=16,
                               deblock=True, partitions=True,
@@ -2238,7 +2315,217 @@ def main() -> int:
               launches=launches_th, card=repr(card))
         del clip_th, outs, stream
 
-        # ---- 17. the command line on the card ------------------------------
+        # ---- 17. placebo_1080p: x264's --preset placebo -----------------
+        t = time.time()
+        clip_pl = moving_clip(w, h, PLACEBO_FRAMES, seed=17)
+        sess = CompressSession(extra_cmdline=CMDLINE_PLACEBO, device=DEV)
+        sess.begin(w, h)
+        enc, pipe = sess.encoder, sess._pipe
+        cfg = enc.cfg
+        check(pipe is not None and sess.mbtree is not None
+              and (enc.nref, cfg.bframes, cfg.me_backend, cfg.subpel,
+                   cfg.search_range, cfg.trellis, enc.partitions, cfg.cabac,
+                   cfg.dct8x8, cfg.i4x4, cfg.deblock)
+              == (4, 16, "auto", 2, 16, True, False, True, True, False, True),
+              "--preset placebo's options reach the batched session (its "
+              "--partitions all selects neither P partitions nor I4x4, as "
+              "in the JAX package)")
+        R = cfg.search_range
+        want_anchors, want_refs, n_b = placebo_schedule(PLACEBO_FRAMES)
+        # per frame type each phase-1 call's device span; the SAD calls
+        # made in B cores and in anchors, with the inputs of the first B
+        # frame's two and of every anchor's; each pipeline run's frames
+        ev = {"I": [], "P": [], "B": []}
+        sad_n, sad_in = {"b": 0, "p": 0}, {"b": [], "p": []}
+        in_b, order, runs, tc_frame, i_recon = [False], [], [], [], []
+        plain = {"frame": enc.encode_frame, "pgop": dfin.encode_pgop_slots,
+                 "bgop": dfin.encode_bgop_slots, "b": dfin.encode_b_slots,
+                 "sad": dv.sad16_argmin, "bcore": dv.encode_b_frame_core,
+                 "emit": sess._emit, "run": pipe._run}
+
+        def keep_sad(src8, refp, R_):
+            kind = "b" if in_b[0] else "p"
+            sad_n[kind] += 1
+            if kind == "p" or len(sad_in["b"]) < 2:
+                sad_in[kind].append((src8, refp))
+            return plain["sad"](src8, refp, R_)
+
+        def b_core(*a, **k):
+            in_b[0] = True
+            try:
+                return plain["bcore"](*a, **k)
+            finally:
+                in_b[0] = False
+
+        def keep_run(final):
+            first = enc.display_idx
+            res = plain["run"](final)
+            runs.append((first, enc.display_idx, [it[1] for it in res]))
+            return res
+
+        def keep_frame(*a, **k):
+            res = timed(plain["frame"], lambda *a, force_idr=None, **k: (
+                "I" if force_idr else "P", 1))(*a, **k)
+            tc_frame.append(enc.transcode_ms)
+            if k.get("force_idr"):
+                i_recon.append(enc.last_recon[0])
+            return res
+
+        def keep_order(outs, *a, **k):
+            order.extend((it[1], it[3]) for it in outs)
+            return plain["emit"](outs, *a, **k)
+
+        dfin.encode_pgop_slots = timed(
+            plain["pgop"], lambda rows, *a, **k: ("P", rows.shape[0]))
+        dfin.encode_bgop_slots = timed(
+            plain["bgop"], lambda rows, *a, **k: ("B", rows.shape[0]))
+        dfin.encode_b_slots = timed(plain["b"], lambda *a, **k: ("B", 1))
+        dv.sad16_argmin, dv.encode_b_frame_core = keep_sad, b_core
+        enc.encode_frame, sess._emit, pipe._run = keep_frame, keep_order, \
+            keep_run
+        try:
+            for m in mods.values():
+                m.LAUNCHES = 0
+            t1 = time.time()
+            outs = [sess.compress(frame) for frame in clip_pl]
+            tail = sess.end()["tail"]
+            torch.cuda.synchronize()
+            wall_pl = time.time() - t1
+            launches_pl = {k: m.LAUNCHES for k, m in mods.items()}
+        finally:
+            dfin.encode_pgop_slots = plain["pgop"]
+            dfin.encode_bgop_slots = plain["bgop"]
+            dfin.encode_b_slots = plain["b"]
+            dv.sad16_argmin = plain["sad"]
+            dv.encode_b_frame_core = plain["bcore"]
+        stream = b"".join(outs) + tail
+        types = "".join(ft for _, ft in order)
+        want_types = {"I": 1, "P": len(want_anchors), "B": n_b}
+        check({k: types.count(k) for k in "IPB"} == want_types
+              and sorted(d for d, _ in order) == list(range(PLACEBO_FRAMES))
+              and sorted(d for d, ft in order if ft == "P") == want_anchors,
+              f"placebo frame types {types}, want {want_types}, anchors "
+              f"{want_anchors}")
+        vcl = [u for u in split_annexb(stream) if u.nal_unit_type in (1, 5)]
+        check("".join("I" if u.nal_unit_type == 5 else
+                      ("P" if u.nal_ref_idc else "B") for u in vcl) == types,
+              f"NAL types and nal_ref_idc follow the frame types {types}")
+        want_pl = {"sad": sum(want_refs) + 2 * n_b, "memc": 0,
+                   "deblock": 1 + len(want_anchors)}
+        check(launches_pl == want_pl and sad_n == {"b": 2 * n_b,
+                                                   "p": sum(want_refs)},
+              f"placebo launches {launches_pl} ({sad_n} in B cores and "
+              f"anchors): want {want_pl}, the SAD kernel once per reference "
+              f"of each anchor {want_refs} and twice per B frame")
+        delay = sess.frames_info().delay
+        check(delay == sess.params.bframes + min(sess.params.rc_lookahead, 60)
+              + 2 * pipe.window - 1 == 99,
+              f"placebo frames_info().delay {delay}, want 99")
+        if PLACEBO_FRAMES > 60 + pipe.window:
+            # the first window: the IDR out, B candidates 1-11 pending
+            # into the next run
+            check(runs[0][:2] == (0, pipe.window) and runs[0][2] == [0]
+                  and set(range(1, pipe.window)) <= set(runs[1][2]),
+                  f"placebo's first B run waits across the first window: "
+                  f"{[(a, b) for a, b, _ in runs]}")
+        psnr_i = psnr(i_recon[0], clip_pl[0][0])
+        psnr_last = psnr(enc.last_recon[0], clip_pl[want_anchors[-1]][0])
+        check(psnr_i > 30.0 and psnr_last > 30.0, f"PSNR of the I frame "
+              f"{psnr_i} and of the last anchor {psnr_last}")
+        # the SAD kernel against its plain version on the first B frame's
+        # L0 and L1 inputs and on the deepest anchor's last reference
+        j = want_refs.index(max(want_refs))
+        deep = sum(want_refs[:j]) + want_refs[j] - 1
+        pl_in = {"b_l0": sad_in["b"][0], "b_l1": sad_in["b"][1],
+                 f"anchor{want_anchors[j]}_ref{want_refs[j] - 1}":
+                     sad_in["p"][deep]}
+        pl_err = {k: max_diff(
+            sadk.sad_partition_minima(src8, refp, R, (1, 0, 0, 0)),
+            sadk.sad_partition_minima_plain(src8, refp, R, (1, 0, 0, 0)))
+            for k, (src8, refp) in pl_in.items()}
+        check(tuple(pl_in["b_l0"][0].shape) == (16 * enc.mbh, 16 * enc.mbw)
+              and not any(pl_err.values()),
+              f"SAD vs plain on placebo's B and anchor inputs: {pl_err}")
+        err["sad"] = max([err["sad"]] + list(pl_err.values()))
+        ms = {k: [a.elapsed_time(b) / n for a, b, n in v]
+              for k, v in ev.items()}
+        phase("placebo_1080p", t, bytes=len(stream), wall_s=round(wall_pl, 3),
+              fps=round(PLACEBO_FRAMES / wall_pl, 3), types=want_types,
+              anchors=want_anchors, references=want_refs, delay=delay,
+              ms_per_frame={k: [round(x, 1) for x in v]
+                            for k, v in ms.items()},
+              cabac_ms_per_batch=[round(x, 2) for x in pipe.transcode_ms],
+              cabac_ms_per_frame=[round(x, 2) for x in tc_frame],
+              cabac_ms_per_slice=round(
+                  (sum(pipe.transcode_ms) + sum(tc_frame)) / PLACEBO_FRAMES,
+                  2),
+              runs=[(a, b) for a, b, _ in runs], launches=launches_pl,
+              sad_calls=sad_n, psnr_i=round(psnr_i, 2),
+              psnr_last=round(psnr_last, 2), session_max_abs_err=pl_err,
+              card=repr(card))
+        del clip_pl, outs, stream, sad_in, pl_in
+
+        # ---- 18. host_cabac_1080p: the syntax-tensor CABAC route --------
+        t = time.time()
+        from x264vfw_tpu_torch.bitstream import cabac_native as cn
+        from x264vfw_tpu_torch.encode.ref_encoder import EncoderConfig
+        clip_hc = moving_clip(w, h, max(n for n, _ in
+                                        HOST_CABAC_1080P.values()), seed=18)
+        coders = ("encode_i_slice", "encode_p_slice", "encode_b_slice")
+        plain_cn = {c: getattr(cn, c) for c in coders}
+        coder_ms = {c[7]: [] for c in coders}
+
+        def timed_coder(c):
+            def run(*a, **k):
+                t1 = time.perf_counter()
+                res = plain_cn[c](*a, **k)
+                coder_ms[c[7]].append((time.perf_counter() - t1) * 1e3)
+                return res
+            return run
+
+        hc, launches_hc = {}, {}
+        for name, (nfr, want) in HOST_CABAC_1080P.items():
+            aus, launched, walls = {}, {}, {}
+            for host in (True, False):
+                enc = TorchEncoder(EncoderConfig(
+                    width=w, height=h, cabac=True, **HOST_CABAC[name]),
+                    device=DEV)
+                enc.host_entropy = host
+                if host:
+                    for c in coders:
+                        setattr(cn, c, timed_coder(c))
+                try:
+                    for m in mods.values():
+                        m.LAUNCHES = 0
+                    t1 = time.time()
+                    got = [au for f in clip_hc[:nfr]
+                           for au, *_ in enc.push_frame(*f)]
+                    got += [au for au, *_ in enc.flush()]
+                    torch.cuda.synchronize()
+                    walls[host] = time.time() - t1
+                    launched[host] = {k: m.LAUNCHES for k, m in mods.items()}
+                finally:
+                    for c in coders:
+                        setattr(cn, c, plain_cn[c])
+                aus[host] = got
+            check(len(aus[True]) == nfr and aus[True] == aus[False],
+                  f"host CABAC {name}: the route's {len(aus[True])} AUs "
+                  "differ from the transcode route's")
+            check(launched[True] == want and launched[False] == want,
+                  f"host CABAC {name} launches {launched}, want {want}")
+            launches_hc[name] = launched[True]
+            hc[name] = {"bytes": len(b"".join(aus[True])),
+                        "wall_s": round(walls[True], 3),
+                        "transcode_route_wall_s": round(walls[False], 3)}
+        phase("host_cabac_1080p", t, configs=hc,
+              coder_ms={k: [round(x, 2) for x in v]
+                        for k, v in coder_ms.items()},
+              launches=launches_hc, identical=True, card=repr(card))
+        launches_hc = {k: sum(v[k] for v in launches_hc.values())
+                       for k in KERNELS}
+        del clip_hc
+
+        # ---- 19. the command line on the card ------------------------------
         t = time.time()
         y4m, out_cli = os.path.join(tmp, "in.y4m"), os.path.join(tmp, "cli.mp4")
         clip_c = moving_clip(*SMALL_SIZE, 6, seed=12)
@@ -2262,7 +2549,7 @@ def main() -> int:
               "the CLI's .mp4 equals a CompressSession's from the same frames")
         phase("cli", t, bytes=len(cli_bytes), identical=True)
 
-        # ---- 18. the record -------------------------------------------------
+        # ---- 20. the record -------------------------------------------------
         meta = {
             "sad": ("csrc/sad.cu", "x264vfw_tpu/ops/pallas/sad.py:239"),
             "memc": ("csrc/memc.cu", "x264vfw_tpu/ops/pallas/memc.py:253"),
@@ -2292,6 +2579,8 @@ def main() -> int:
                 "transcode_4k_source_launches": launches_src[k],
                 "gop_1080p_launches": launches_g[k],
                 "threads_launches": launches_th[k],
+                "placebo_launches": launches_pl[k],
+                "host_cabac_launches": launches_hc[k],
                 "build_s": build_s[k], "ptxas": ptxas_report(k),
                 "shape": [H, W, R], "card": card}
             if k == "sad":

@@ -95,10 +95,30 @@ def test_cases_cover_the_syntax(slices):
         assert (qpd > 0) == ("aq" in case), (case, qpd)
 
 
+# the one repair the port's copy of the C coder makes (ROADMAP.md,
+# section C): ref_idx contexts of P partitions over several references
+# read the MB's earlier partitions (test_torch_host_cabac.py::
+# test_partition_ref_idx_context_fault_not_copied)
+SOURCE_REPAIRS = {"cabac_ext.c": ("""            if (nref > 1)
+                for (int pi = 0; pi < np; pi++)
+                    ref_idx_code(&c, m, qx0 + POS[pt][pi][0],
+                                 qy0 + POS[pt][pi][1], r);
+""", """            if (nref > 1)
+                for (int pi = 0; pi < np; pi++) {
+                    int qx = qx0 + POS[pt][pi][0], qy = qy0 + POS[pt][pi][1];
+                    ref_idx_code(&c, m, qx, qy, r);
+                    /* the MB's later partitions read this one as their
+                     * neighbour A or B (9.3.3.1.1.6) */
+                    ref_fill(m, qx, qy, pt == 0 ? 2 : SIZ[pt][0],
+                             pt == 0 ? 2 : SIZ[pt][1], r);
+                }
+""")}
+
+
 def test_builds_its_own_copies(slices):
     """The port's host libraries come from csrc/host/ and live in
-    _build/; the sources equal the JAX side's, and nothing under tools/
-    changed while the port built and ran them."""
+    _build/; the sources equal the JAX side's but for SOURCE_REPAIRS, and
+    nothing under tools/ changed while the port built and ran them."""
     tools = os.path.join(ROOT, "tools")
     before = {os.path.join(d, n): os.stat(os.path.join(d, n)).st_mtime_ns
               for d, _, ns in os.walk(tools) for n in ns}
@@ -111,9 +131,14 @@ def test_builds_its_own_copies(slices):
         assert os.path.samefile(lib._name, path)
         for f in files:
             src = "decparse" if name == "cavlcparse" else "cabac"
-            with open(os.path.join(build.HOST_DIR, f), "rb") as a, \
-                    open(os.path.join(tools, src, f), "rb") as b:
-                assert a.read() == b.read(), f
+            with open(os.path.join(build.HOST_DIR, f)) as a, \
+                    open(os.path.join(tools, src, f)) as b:
+                port, jax = a.read(), b.read()
+            if f in SOURCE_REPAIRS:
+                was, now = SOURCE_REPAIRS[f]
+                assert jax.count(was) == 1, f
+                jax = jax.replace(was, now)
+            assert port == jax, f
     after = {os.path.join(d, n): os.stat(os.path.join(d, n)).st_mtime_ns
              for d, _, ns in os.walk(tools) for n in ns}
     assert after == before

@@ -23,7 +23,12 @@ encoder's reconstructions; card against CPU in every output format, on
 a CABAC + B stream and on MP4 samples, and the scaler), the transcode
 from the session size to half of it (the script's 4K to 1080p), the
 GOP-parallel encode and the --threads 4 session on one device named
-twice, and the command line.
+twice, x264's --preset placebo (20 frames: 1 I, 2 P, 17 B; the SAD
+kernel held against its plain version on a B frame's L0 and L1 inputs
+and on an anchor's deepest reference), the syntax-tensor CABAC route
+against the transcode route (and on the card-vs-CPU clip in all four of
+tests/test_cabac_transcode.py's configurations, beside the four presets'
+sessions), and the command line.
 Also: without a card the script exits non-zero and prints no result.
 """
 
@@ -91,6 +96,9 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     # frames with the cut at 19 on the card)
     monkeypatch.setattr(cs, "B_FRAMES", 14)
     monkeypatch.setattr(cs, "B_CUT", 9)
+    # --preset placebo over 20 frames (the script's 74): the anchor 17
+    # after 16 B frames, then the tail anchor 19 and one B frame
+    monkeypatch.setattr(cs, "PLACEBO_FRAMES", 20)
     # the transcode from the session size (the script's 4K) to half of it
     monkeypatch.setattr(cs, "TC_SRC_SIZE", (128, 96))
     monkeypatch.setattr(cs, "TC_DST_SIZE", (64, 48))
@@ -185,13 +193,20 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     # 4 (8 frames, 2 IDRs), the same
     assert [k["gop_1080p_launches"] for k in kern] == [4, 4, 6]
     assert [k["threads_launches"] for k in kern] == [6, 6, 8]
+    # --preset placebo: the SAD kernel once per reference of each anchor
+    # (1, then 2) and twice per B frame (17), one deblock per I and P frame
+    assert [k["placebo_launches"] for k in kern] == [1 + 2 + 2 * 17, 0, 3]
+    # the syntax-tensor CABAC route: full-feature (I + 4 P: SAD and memc
+    # per P frame) and bframes (I, 2 P, 3 B: SAD once per P, twice per B)
+    assert [k["host_cabac_launches"] for k in kern] == [4 + 8, 4, 5 + 3]
     phases = {ln.split("] ")[1].split(":")[0] for ln in lines
               if ln.startswith("[")}
     assert {"session_1080p_ultrafast_crf23", "session_1080p_hier_qpel_deblock",
             "session_1080p_veryfast", "session_1080p_veryfast_batched",
             "session_1080p_medium", "session_1080p_measured", "card_vs_cpu",
             "decode_1080p", "transcode_4k", "gop_1080p",
-            "session_1080p_threads", "cli"} <= phases
+            "session_1080p_threads", "placebo_1080p", "host_cabac_1080p",
+            "cli"} <= phases
     assert kern[2]["launches_per_frame"] == 1
     assert kern[0]["slice1_launches"] == 3
     H, W, R = kern[0]["shape"]     # one VABSDIFF4 per 4 byte differences

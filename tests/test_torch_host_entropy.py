@@ -1,6 +1,7 @@
-"""The encoder's host-entropy path (TorchEncoder.host_entropy: the I or P
-core, then the numpy CAVLC coder bitstream/cavlc_vec.py on the host),
-held to the JAX package: cavlc_vec against the JAX package's numpy
+"""The encoder's host-entropy path with CAVLC (TorchEncoder.host_entropy:
+the I or P core, then the numpy CAVLC coder bitstream/cavlc_vec.py on
+the host; with --cabac, test_torch_host_cabac.py), held to the JAX
+package: cavlc_vec against the JAX package's numpy
 module and the port's device coder cavlc_dev on seeded blocks, and the
 host-entropy stream against JAX's committed bytes
 (tests/jax_refs/parallel.npz) and the device-entropy stream, on
@@ -79,12 +80,11 @@ def test_host_entropy_equals_jax_and_device_entropy():
 @pytest.mark.parametrize("field,value,error", [
     ("deblock", True, AssertionError),
     ("weightp", 1, AssertionError),
-    ("cabac", True, NotImplementedError),
 ])
 def test_host_entropy_refuses(field, value, error):
-    """JAX's two asserts (no loop filter, no weighted prediction); with
-    CABAC the JAX package takes its pure-Python CABAC coder, which has no
-    counterpart."""
+    """JAX's two asserts of the CAVLC host path (no loop filter, no
+    weighted prediction); with --cabac the encoder takes the
+    syntax-tensor CABAC route (test_torch_host_cabac.py)."""
     enc = TorchEncoder(EncoderConfig(**{**HE_CFG, field: value}),
                        device="cpu")
     enc.host_entropy = True

@@ -5,8 +5,9 @@ cores, finalisation, deblock and packing cases of the older test files,
 the B-frame lines with the B cores and MB-tree's P cores, the single
 JAX calls of the SAD, search, partition, CAVLC and map tests, and the
 --psnr/--ssim sessions, muxer input and CLI files of the session
-surface, the decoder's cases, and the GOP-parallel, transcode and
-host-entropy cases).
+surface, the decoder's cases, the GOP-parallel, transcode and
+host-entropy cases, x264's last four presets and the syntax-tensor
+CABAC route).
 
 tools/make_torch_jax_refs.py runs the JAX package on the tests' own inputs
 and writes its access units (and, for the converted-state tests, the
@@ -28,7 +29,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_DIR = os.path.join(ROOT, "tests", "jax_refs")
 NAMES = ("slice1", "slice2", "live", "l3", "l4", "core", "batched",
-         "calls", "multiref", "units", "surface", "decode", "parallel")
+         "calls", "multiref", "units", "surface", "decode", "parallel",
+         "presets", "host_cabac")
 SCRIPT = "tools/make_torch_jax_refs.py"
 
 

@@ -110,12 +110,23 @@ source hash no longer matches.  Each file holds:
     the JAX scaler hands to the encoder in each (tc_<i>_<plane>,
     tf_<i>_<plane>); and the host-entropy encoder's stream (he_stream).
 
+  * presets.npz (test_torch_presets.py): per line of x264's last four
+    presets (fast, slower, veryslow, placebo) every compress() return,
+    the tail and frames_info().delay over the line's clip
+    (<line>_out_<i>, <line>_tail, <line>_delay);
+  * host_cabac.npz (test_torch_host_cabac.py): per configuration of
+    tests/test_cabac_transcode.py the stream of the JAX encoder's
+    syntax-tensor CABAC route (_transcode_ok returning False:
+    <config>_stream), and the route's stream with the 8x8 transform,
+    frame by frame (t8_stream), with each frame's luma reconstruction
+    (t8_recon_<i>).
     JAX_PLATFORMS=cpu python tools/make_torch_jax_refs.py multiref
 
 takes about half an hour (XLA:CPU compiles every program of the six
 sessions); tools/make_torch_jax_refs.py multiref:<part> writes only the
 part (units, converted or one line's session) into the file, keeping
-the rest.
+the rest; presets:<line> likewise one preset's session (placebo's takes
+the longest).
 """
 
 from __future__ import annotations
@@ -154,8 +165,10 @@ import test_torch_memc as tmc  # noqa: E402
 import test_torch_multiref as tmr  # noqa: E402
 import test_torch_partitions as tp  # noqa: E402
 import test_torch_gop as tg  # noqa: E402
+import test_torch_host_cabac as thc  # noqa: E402
 import test_torch_host_entropy as the  # noqa: E402
 import test_torch_pipeline as tpl  # noqa: E402
+import test_torch_presets as tpr  # noqa: E402
 import test_torch_session as ts  # noqa: E402
 import test_torch_telemetry as ttm  # noqa: E402
 import test_torch_transform as ttf  # noqa: E402
@@ -782,6 +795,52 @@ def parallel_refs(digest) -> dict:
     return out
 
 
+def preset_session(name: str) -> dict:
+    """One line of test_torch_presets.LINES over its clip."""
+    out = {}
+    s = CompressSession(extra_cmdline=tpr.LINES[name])
+    s.begin(tpr.W, tpr.H)
+    put_aus(out, f"{name}_out", [s.compress(f) for f in tpr.clip(name)])
+    out[f"{name}_tail"] = np.frombuffer(s.end()["tail"], np.uint8)
+    out[f"{name}_delay"] = s.frames_info().delay
+    return out
+
+
+def host_cabac_refs(digest) -> dict:
+    """The JAX encoder's syntax-tensor CABAC route on test_torch_host_
+    cabac.py's configurations (test_cabac_transcode.py's old path)."""
+    from x264vfw_tpu.encode.ref_encoder import EncoderConfig as JConfig
+    out = {"source_sha256": digest}
+    for name, kw in thc.CONFIGS.items():
+        enc = TpuEncoder(JConfig(width=thc.SIZE, height=thc.SIZE, cabac=True,
+                                 **kw))
+        enc._transcode_ok = lambda: False
+        out[f"{name}_stream"] = np.frombuffer(thc.encode_stream(enc),
+                                              np.uint8)
+    # the route with the 8x8 transform, frame by frame, and each frame's
+    # luma reconstruction
+    enc = TpuEncoder(JConfig(width=thc.SIZE, height=thc.SIZE, cabac=True,
+                             **thc.T8_CFG))
+    enc._transcode_ok = lambda: False
+    bs = enc.headers()
+    for i, f in enumerate(thc.clip()):
+        bs += enc.encode_frame(*f)
+        out[f"t8_recon_{i}"] = np.asarray(enc.last_recon[0], np.uint8)
+    out["t8_stream"] = np.frombuffer(bs, np.uint8)
+    return out
+
+
+PRESET_PARTS = {name: (lambda name=name: preset_session(name))
+                for name in tpr.LINES}
+
+
+def presets_refs(digest) -> dict:
+    out = {"source_sha256": digest}
+    for make in PRESET_PARTS.values():
+        out.update(make())
+    return out
+
+
 MULTIREF_PARTS = {"units": multiref_units, "converted": multiref_converted,
                   **{name: (lambda name=name: multiref_session(name))
                      for name in tmr.LINES}}
@@ -798,23 +857,29 @@ MAKERS = {"live": live_refs, "l3": l3_refs, "l4": l4_refs,
           "core": core_refs, "batched": batched_refs, "calls": calls_refs,
           "multiref": multiref_refs, "units": units_refs,
           "surface": surface_refs, "decode": decode_refs,
-          "parallel": parallel_refs}
+          "parallel": parallel_refs, "presets": presets_refs,
+          "host_cabac": host_cabac_refs}
+PARTS = {"multiref": MULTIREF_PARTS, "presets": PRESET_PARTS}
 
 
 def main() -> int:
     digest = np.asarray(refs.source_hash())
     os.makedirs(refs.REF_DIR, exist_ok=True)
     only = sys.argv[1:]
-    parts = [a.split(":", 1)[1] for a in only if a.startswith("multiref:")]
+    parts = [a.split(":", 1) for a in only if ":" in a]
     if parts:
-        unknown = set(parts) - set(MULTIREF_PARTS)
-        if unknown or len(parts) != len(only):
-            raise SystemExit(f"unknown multiref parts: {sorted(unknown)}")
-        path = refs.path("multiref")
-        out = refs.load("multiref") if os.path.exists(path) else {}
+        names = {name for name, _ in parts}
+        unknown = {f"{n}:{p}" for n, p in parts
+                   if p not in PARTS.get(n, {})}
+        if unknown or len(names) != 1 or len(parts) != len(only):
+            raise SystemExit(f"unknown parts, or parts of several files: "
+                             f"{sorted(unknown or only)}")
+        name, = names
+        path = refs.path(name)
+        out = refs.load(name) if os.path.exists(path) else {}
         out["source_sha256"] = digest
-        for part in parts:
-            out.update(MULTIREF_PARTS[part]())
+        for _, part in parts:
+            out.update(PARTS[name][part]())
         np.savez_compressed(path, **out)
         print(path, os.path.getsize(path), "bytes")
         return 0

@@ -1,9 +1,11 @@
 """ctypes loader for the host CABAC slice coder (csrc/host/cabac_ext.c).
 
 Port of x264vfw_tpu/bitstream/cabac_native.py (P, B and I slices): one
-call codes a whole slice's data from its syntax arrays.  The library is
-built with gcc into _build/ at first use (ops/kernels/build.py); a failed
-build raises, and there is no Python fallback.
+call codes a whole slice's data from its syntax arrays, for the CABAC
+transcode and the encoder's syntax-tensor route.  The library is built
+with gcc into _build/ at first use (ops/kernels/build.py); a failed
+build raises, and there is no Python fallback (bitstream/cabac_slice.
+CabacSlice, its plain version, is called by the tests only).
 """
 
 from __future__ import annotations

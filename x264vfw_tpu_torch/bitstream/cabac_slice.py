@@ -1,8 +1,10 @@
 """CABAC slice coding: binarization + context modeling (§9.3.2/9.3.3).
 
-Covers the syntax our encoder emits: P slices of P_Skip / P_L0_16x16
-macroblocks and I slices of I_16x16 macroblocks, 4:2:0, one reference,
-constant QP (mb_qp_delta == 0).
+Covers the syntax the encoder emits, 4:2:0: I slices of I_16x16 and
+I_NxN macroblocks, P slices of P_Skip and P_L0 16x16 / 16x8 / 8x16 /
+8x8 macroblocks with ref_idx and mb_qp_delta, B slices of B_Skip,
+B_Direct_16x16 and 16x16 L0 / L1 / Bi macroblocks (the reader also the
+8x8 transform and sub-8x8 partitions).
 
 Design: every syntax routine is written ONCE against a bin-IO abstraction
 (`_Writer` / `_Reader`) and therefore serves both the encoder and the
@@ -12,7 +14,9 @@ encoder's context modeling.
 
 Capability replaced: libx264's CABAC entropy coder and the FFmpeg decoder's
 CABAC parse (SURVEY §2c).  In the port it is the host decoder's CABAC
-reader (decode/decoder.py); the encoder's CABAC is the C transcode.
+reader (decode/decoder.py) and, writing, the plain version of the C
+coder (bitstream/cabac_native.py) that the encoder's CABAC paths call;
+only the tests write with it.
 """
 
 from __future__ import annotations

@@ -557,9 +557,14 @@ long cabac_encode_p_slice(
             static const int SIZ[4][2] = {{2,2},{2,1},{1,2},{1,1}};
             int np = pt == 0 ? 1 : (pt == 3 ? 4 : 2);
             if (nref > 1)
-                for (int pi = 0; pi < np; pi++)
-                    ref_idx_code(&c, m, qx0 + POS[pt][pi][0],
-                                 qy0 + POS[pt][pi][1], r);
+                for (int pi = 0; pi < np; pi++) {
+                    int qx = qx0 + POS[pt][pi][0], qy = qy0 + POS[pt][pi][1];
+                    ref_idx_code(&c, m, qx, qy, r);
+                    /* the MB's later partitions read this one as their
+                     * neighbour A or B (9.3.3.1.1.6) */
+                    ref_fill(m, qx, qy, pt == 0 ? 2 : SIZ[pt][0],
+                             pt == 0 ? 2 : SIZ[pt][1], r);
+                }
             for (int pi = 0; pi < np; pi++) {
                 int qx = qx0 + POS[pt][pi][0], qy = qy0 + POS[pt][pi][1];
                 int pw = pt == 0 ? 2 : SIZ[pt][0];

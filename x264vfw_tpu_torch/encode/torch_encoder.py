@@ -24,10 +24,14 @@ anchors and tail B frames with encode_frame and _encode_b.  With measure
 on (the session's --psnr/--ssim) each frame's recon, a B frame's from
 encode_b_slots(want_recon=True), stays on the device per display index
 until the session takes it with pop_recon.  With host_entropy on (the
-JAX package's reference / debug path: CAVLC, no loop filter, no weighted
-prediction) encode_frame runs the I or P core alone, pulls its syntax
-tensors and writes the slice on the host with the numpy coder
-(bitstream/cavlc_vec.py): _finalize_i, _finalize_p.
+JAX package's reference / debug path) encode_frame runs the I or P core
+alone and pulls its syntax tensors: with CAVLC (no loop filter, no
+weighted prediction) the numpy coder (bitstream/cavlc_vec.py) writes the
+slice, _finalize_i and _finalize_p; with --cabac the C CABAC coder
+(bitstream/cabac_native.py) writes the I, P and B slices from them, the
+syntax-tensor CABAC route (_encode_frame_cabac, _encode_b_cabac), every
+option of the config taken, the loop filter and the DPB as on the
+device-entropy route.
 
 Header conventions (SPS profile/level/DPB size, PPS, slice headers,
 version SEI) are the JAX package's, byte for byte.
@@ -112,7 +116,9 @@ class TorchEncoder:
         # scene-cut lookahead (--scenecut / --min-keyint)
         from .lookahead import SceneCut
         self._scenecut = SceneCut(cfg.scenecut) if cfg.scenecut > 0 else None
-        self.transcode_ms = 0.0   # the last frame's host CABAC transcode
+        # the last slice's host CABAC ms: the transcode, or on the
+        # syntax-tensor route the C coder's call
+        self.transcode_ms = 0.0
         self.frame_idx = 0
         self.frame_num = 0
         self.idr_id = 0
@@ -131,8 +137,9 @@ class TorchEncoder:
         self.qp = cfg.qp
         self.qpc = int(tables.chroma_qp(cfg.qp, self.pps.chroma_qp_index_offset))
         self._i_full = None            # I-frame phase 1 for this geometry
-        # host_entropy: the numpy finalisation (reference / debug, CAVLC
-        # only); off, the whole entropy stage stays on the device
+        # host_entropy: the slice written on the host from the pulled
+        # syntax tensors (reference / debug); off, the CAVLC stage stays on
+        # the device
         self.host_entropy = False
         # PSNR/SSIM telemetry (the reference's b_psnr/b_ssim, codec.c:
         # 1558-1559): with measure on, each frame's recon is kept on the
@@ -296,6 +303,8 @@ class TorchEncoder:
             self.qpc = int(tables.chroma_qp(self.qp,
                                             self.pps.chroma_qp_index_offset))
         self.poc = poc
+        if cfg.cabac and self.host_entropy:
+            return self._encode_b_cabac(y, u, v, ref0, ref1, mvcol)
         src_d = torch.from_numpy(self.pack_batch_rows([(y, u, v)])[0]) \
             .to(self.device)
         hv, hl = self._header_slots(SLICE_B, NAL_SLICE, nal_ref_idc=0)
@@ -318,11 +327,6 @@ class TorchEncoder:
         """Encode one I or P frame (an IDR when force_idr, or at keyint
         without it); qp_off: MB-tree's per-MB QP offsets of a P frame."""
         cfg = self.cfg
-        if cfg.cabac and self.host_entropy:
-            # the JAX package sends this to its pure-Python CABAC coder,
-            # which has no counterpart
-            raise NotImplementedError("host_entropy writes CAVLC slices "
-                                      "only; use --no-cabac")
         H, W = self.mbh * 16, self.mbw * 16
         is_idr = (self.frame_idx % cfg.keyint) == 0 or self.ref is None
         if force_idr is not None:
@@ -331,6 +335,8 @@ class TorchEncoder:
             self.qp = int(min(max(qp, 0), 51))
             self.qpc = int(tables.chroma_qp(self.qp,
                                             self.pps.chroma_qp_index_offset))
+        if cfg.cabac and self.host_entropy:
+            return self._encode_frame_cabac(y, u, v, is_idr, qp_off)
         if self.host_entropy:
             assert not cfg.deblock, "host_entropy debug path has no deblock"
             assert cfg.weightp == 0, "host_entropy debug path has no weightp"
@@ -355,12 +361,7 @@ class TorchEncoder:
                                                 hv, hl)
         else:
             nal_type = NAL_SLICE
-            self._wp = (self._weight_analysis(y) if cfg.weightp > 0
-                        else None)
-            # the DPB's references, stacked, once it holds more than one
-            self._cur_nref = (min(len(self.dpb), self.nref)
-                              if self.nref > 1 and len(self.dpb) > 1 else 1)
-            refs = (self.stacked_dpb() if self._cur_nref > 1 else self.ref)
+            refs = self._p_references(y)
             hv, hl = self._header_slots(SLICE_P, nal_type)
             sv_, sl_, ry, ru, rv, out = device_finalize.encode_p_slots(
                 src_d, *refs, self.qp, self.qpc, hv, hl,
@@ -406,10 +407,7 @@ class TorchEncoder:
         (slice RBSP, NAL unit type)."""
         from .device import encode_i_frame_core, encode_p_frame_core
         cfg = self.cfg
-        H, W = self.mbh * 16, self.mbw * 16
-        sy, su, sv = (torch.as_tensor(np.ascontiguousarray(
-            _pad(p, H // k, W // k), dtype=np.int32), device=self.device)
-            for p, k in ((y, 1), (u, 2), (v, 2)))
+        sy, su, sv = self._planes_i32(y, u, v)
         if is_idr:
             self.frame_num = 0
             out = encode_i_frame_core(sy, su, sv, self.qp, self.qpc)
@@ -422,6 +420,204 @@ class TorchEncoder:
             payload, nal_type = self._finalize_p(out), NAL_SLICE
         self.ref = (out["recon_y"], out["recon_u"], out["recon_v"])
         return payload, nal_type
+
+    def _planes_i32(self, y, u, v) -> tuple:
+        """The frame's planes, edge-padded to the MB-multiple size, as int32
+        tensors on the device."""
+        H, W = self.mbh * 16, self.mbw * 16
+        return tuple(torch.as_tensor(np.ascontiguousarray(
+            _pad(p, H // k, W // k), dtype=np.int32), device=self.device)
+            for p, k in ((y, 1), (u, 2), (v, 2)))
+
+    # -- host_entropy with --cabac: the syntax-tensor CABAC route ----------
+    def _cabac_header(self, slice_type: int, nal_type: int,
+                      nal_ref_idc: int = 3) -> bytes:
+        """The slice header's bytes, ended with cabac_alignment_one_bits
+        (§7.3.4: CABAC slice data starts byte-aligned)."""
+        hw = self._slice_header_codes(slice_type, nal_type, nal_ref_idc)
+        pad = (-hw.bit_position) % 8
+        if pad:
+            hw.u(pad, (1 << pad) - 1)
+        return hw.to_rbsp().tobytes()
+
+    def _encode_frame_cabac(self, y, u, v, is_idr: bool, qp_off) -> bytes:
+        """One I or P frame on the syntax-tensor CABAC route (host_entropy
+        with --cabac): the I or P core alone, its syntax tensors pulled,
+        the slice data written on the host by the C coder
+        (bitstream/cabac_native.py), then, as on the device-entropy route,
+        the loop filter, the DPB and the counters.  The P core takes every
+        option of the config (weights, several references, partitions,
+        AQ, MB-tree offsets, trellis, the 8x8 transform); the I core only
+        the I4x4 candidate, as in the JAX package."""
+        from ..bitstream import cabac_native as cn
+        from .device import (apply_loop_filter, encode_i_frame_core,
+                             encode_p_frame_core)
+        cfg = self.cfg
+        mbh, mbw = self.mbh, self.mbw
+        sy, su, sv = self._planes_i32(y, u, v)
+        if is_idr:
+            self.frame_num = 0
+            nal_type = NAL_SLICE_IDR
+            if cfg.weightp > 0:
+                self._weight_analysis(y)    # refresh the pooled-prev state
+            outd = encode_i_frame_core(sy, su, sv, self.qp, self.qpc,
+                                       i4x4=cfg.i4x4)
+        else:
+            nal_type = NAL_SLICE
+            refs = self._p_references(y)
+            outd = encode_p_frame_core(
+                sy, su, sv, *refs, self.qp, self.qpc, rng=cfg.search_range,
+                subpel=cfg.subpel, me_backend=cfg.me_backend,
+                partitions=self.partitions, aq_strength=cfg.aq_strength,
+                qpc_offset=self.pps.chroma_qp_index_offset, wp=self._wp,
+                dct8x8=cfg.dct8x8,
+                qp_off=None if qp_off is None else torch.as_tensor(
+                    np.asarray(qp_off, np.int32), device=self.device),
+                trellis=cfg.trellis)
+            self.last_mv = device_finalize.colocated_mv(outd, mbh * mbw)
+            self.last_mv8 = outd.get("mv8")
+        syn = self._i_syntax(outd) if is_idr else self._p_syntax(outd)
+        hdr = self._cabac_header(SLICE_I if is_idr else SLICE_P, nal_type)
+        t8_mode = bool(self.pps.transform_8x8_mode_flag)
+        t0 = time.perf_counter()
+        if is_idr:
+            body = cn.encode_i_slice(self.qp, mbh, mbw, *syn,
+                                     t8_mode=t8_mode)
+        else:
+            t8 = outd.get("t8")
+            body = cn.encode_p_slice(
+                self.qp, 0, mbh, mbw, *syn, self._cur_nref,
+                np.zeros(mbh * mbw, np.uint8) if t8 is None else _host(t8),
+                t8_mode)
+        self.transcode_ms = (time.perf_counter() - t0) * 1e3
+        self.ref = (outd["recon_y"], outd["recon_u"], outd["recon_v"])
+        if cfg.deblock:
+            self.ref = apply_loop_filter(
+                outd, self.qp, mbh, mbw, is_idr, offA=2 * cfg.deblock_alpha,
+                offB=2 * cfg.deblock_beta,
+                qpc_offset=self.pps.chroma_qp_index_offset)
+        if self.nref > 1:
+            self.dpb = ([self.ref] + ([] if is_idr else self.dpb))[:self.nref]
+        return self._wrap_frame(hdr + body, nal_type, is_idr)
+
+    def _encode_b_cabac(self, y, u, v, ref0, ref1, mvcol) -> bytes:
+        """One B frame on the syntax-tensor CABAC route: the B core alone
+        (no trellis, no 8x8 transform, as in the JAX package), the final
+        per-list vectors and their predictions (device_finalize.
+        b_mv_pred), the slice written by the C coder."""
+        from ..bitstream import cabac_native as cn
+        from .device import encode_b_frame_core
+        cfg = self.cfg
+        mbh, mbw = self.mbh, self.mbw
+        n = mbh * mbw
+        outd = encode_b_frame_core(
+            *self._planes_i32(y, u, v), *ref0, *ref1, mvcol, self.qp,
+            self.qpc, rng=cfg.search_range, subpel=cfg.subpel,
+            me_backend=cfg.me_backend, want_recon=self.measure)
+        self._last_b_recon = (tuple(outd[k] for k in ("recon_y", "recon_u",
+                                                      "recon_v"))
+                              if self.measure else None)
+        mode_map = outd["mode"].reshape(mbh, mbw, 1)
+        mvds = []
+        for lst, on in (("0", (1, 3)), ("1", (2, 3))):
+            mv = torch.where((mode_map == on[0]) | (mode_map == on[1]),
+                             outd["mv" + lst].reshape(mbh, mbw, 2), 0)
+            pmv = device_finalize.b_mv_pred(
+                mv, outd["uses" + lst].reshape(mbh, mbw))
+            mvds.append(_host(mv - pmv).reshape(n, 2))
+        res = self._residual_syntax(outd)
+        cbp_l, cbp_c = res[0], res[1]
+        mode = _host(outd["mode"])
+        skip = (mode == 0) & (cbp_l == 0) & (cbp_c == 0)
+        hdr = self._cabac_header(SLICE_B, NAL_SLICE, nal_ref_idc=0)
+        t0 = time.perf_counter()
+        body = cn.encode_b_slice(self.qp, 0, mbh, mbw, skip, mode, *mvds,
+                                 *res,
+                                 bool(self.pps.transform_8x8_mode_flag),
+                                 np.zeros(n, np.uint8))
+        self.transcode_ms = (time.perf_counter() - t0) * 1e3
+        self.frame_idx += 1
+        return wrap_nal(0, NAL_SLICE, hdr + body)
+
+    def _chroma_syntax(self, outd, cbp_c: np.ndarray) -> tuple:
+        """Chroma DC u, v (n, 4) and AC u, v (n, 4, 15) as the C coder
+        takes them, masked by cbp_chroma."""
+        n = self.mbh * self.mbw
+        dc = (cbp_c >= 1)[:, None]
+        ac = (cbp_c == 2)[:, None, None]
+        return (np.where(dc, _host(outd["dc_u"]).reshape(n, 4), 0),
+                np.where(dc, _host(outd["dc_v"]).reshape(n, 4), 0),
+                np.where(ac, _host(outd["ac_u"]), 0),
+                np.where(ac, _host(outd["ac_v"]), 0))
+
+    def _residual_syntax(self, outd) -> tuple:
+        """An inter frame's residual as the C coder takes it: cbp_luma,
+        cbp_chroma, the luma levels (n, 16, 16) masked by the coded
+        quadrants, then _chroma_syntax."""
+        cbp_l, cbp_c = _host(outd["cbp_luma"]), _host(outd["cbp_chroma"])
+        quad = ((cbp_l[:, None] >> (np.arange(16) // 4)) & 1).astype(bool)
+        return (cbp_l, cbp_c,
+                np.where(quad[:, :, None], _host(outd["levels"]), 0),
+                *self._chroma_syntax(outd, cbp_c))
+
+    def _i_syntax(self, outd) -> tuple:
+        """The I core's syntax in encode_i_slice's argument order (after qp,
+        mbh, mbw): modes, the AC flag, cbp_chroma, luma DC and AC (masked
+        by the flag), _chroma_syntax, and with I4x4 MBs their prediction
+        modes, cbp and levels."""
+        acf = _host(outd["cbp_luma_nz"]).astype(np.uint8)
+        cbc = _host(outd["cbp_chroma"])
+        use_i4 = outd.get("use_i4")
+        i4 = None
+        if use_i4 is not None and bool(use_i4.any()):
+            i4 = tuple(_host(outd[k]) for k in ("use_i4", "i4_prev", "i4_rem",
+                                                "cbp_luma4", "levels4"))
+        return (_host(outd["i16_mode"]), _host(outd["cmode"]), acf, cbc,
+                _host(outd["dc"]),
+                np.where(acf[:, None, None].astype(bool),
+                         _host(outd["ac"]), 0),
+                *self._chroma_syntax(outd, cbc), i4)
+
+    def _p_syntax(self, outd) -> tuple:
+        """The P core's syntax in encode_p_slice's argument order (after
+        qp, init_idc, mbh, mbw, up to nref): the P_Skip flags, the mvds per
+        quadrant slot (n, 4, 2), the residual (_residual_syntax), the
+        mb_qp_deltas, the partition shapes and the ref_idx.  P16x16
+        vectors are predicted with p16_mv_pred over the ref_idx map,
+        partitions with inter_partition.partition_mvds; an MB skips when
+        it codes no residual, at refIdx 0 with the P_Skip vector (with
+        partitions, a 16x16 MB at the zero vector where P_Skip's is
+        zero)."""
+        from .inter_partition import partition_mvds
+        mbh, mbw = self.mbh, self.mbw
+        n = mbh * mbw
+        res = self._residual_syntax(outd)
+        coded = (res[0] != 0) | (res[1] != 0)
+        zeros = np.zeros(n, np.int32)
+        qpd = _host(outd["qp_delta"]) if "qp_delta" in outd else zeros
+        ref = _host(outd["ref_idx"]) if "ref_idx" in outd else zeros
+        if "part" in outd:
+            part = outd["part"]
+            mvd8, _, skipz = partition_mvds(outd["mv8"],
+                                            part.reshape(mbh, mbw))
+            mv00 = _host(outd["mv8"][0::2, 0::2]).reshape(n, 2)
+            part = _host(part)
+            skip = (~coded & (part == 0) & (mv00 == 0).all(1)
+                    & _host(skipz).reshape(n))
+            mvd = _host(mvd8).reshape(mbh, 2, mbw, 2, 2) \
+                .transpose(0, 2, 1, 3, 4).reshape(n, 4, 2)
+        else:
+            mv = outd["mv"].reshape(mbh, mbw, 2)
+            pmv, skipz = device_finalize.p16_mv_pred(
+                mv, outd["ref_idx"].reshape(mbh, mbw)
+                if "ref_idx" in outd else None)
+            mvf = _host(mv).reshape(n, 2)
+            skip = (~coded & (mvf == 0).all(1) & _host(skipz).reshape(n)
+                    & (ref == 0))
+            part = zeros
+            mvd = np.zeros((n, 4, 2), np.int32)
+            mvd[:, 0] = mvf - _host(pmv).reshape(n, 2)
+        return (skip, mvd, *res, qpd, part, ref)
 
     def _nc_luma_map(self, tc_blk: np.ndarray) -> np.ndarray:
         """tc_blk: (nMB, 16) total coeffs in block coding order ->
@@ -557,6 +753,16 @@ class TorchEncoder:
             w.ue(int(trailing))
         w.rbsp_trailing_bits()
         return w.to_rbsp()
+
+    def _p_references(self, y) -> tuple:
+        """A P frame's weights (self._wp, from the weight analysis with
+        --weightp) and references: the DPB's, stacked, once it holds more
+        than one (self._cur_nref of them), else the last reference."""
+        self._wp = (self._weight_analysis(y) if self.cfg.weightp > 0
+                    else None)
+        self._cur_nref = (min(len(self.dpb), self.nref)
+                          if self.nref > 1 and len(self.dpb) > 1 else 1)
+        return self.stacked_dpb() if self._cur_nref > 1 else self.ref
 
     def stacked_dpb(self) -> tuple:
         """The DPB's first _cur_nref entries as (R, H, W) y, u and v
