@@ -67,11 +67,16 @@ zerolatency, also with --me esa, whose SAD launches are counted, on 8
 frames with a cut at 5; and the syntax-tensor CABAC route in
 tests/test_cabac_transcode.py's four configurations, also equal to the
 card's transcode route), and
-four lines that go through input conversion, a container and the
+five lines that go through input conversion, a container and the
 telemetry (BGRA to Matroska with --psnr --ssim, NV12 to MP4, YUYV to FLV
-with --threads 4, RGB24 to AVI), whose files and end() stats must be
-equal.  Then the decoder (phase decode_1080p): DecompressSession on the
-card reads back, access unit by access unit, slice 2's and L4's 1080p
+with --threads 4, RGB24 to AVI, and I420 to MP4 with the VUI options),
+whose files and end() stats must be equal; and rate control (ABR per
+frame and batched, VBV with --nal-hrd cbr --aud, both passes of the
+default session with their stats file), the --chroma-qp-offset lines,
+two lines cropped to 120x88 with their decode, and encode_gop_batch and
+the pipelined route.  Then the decoder (phase decode_1080p):
+DecompressSession on the card reads back, access unit by access unit,
+slice 2's and L4's 1080p
 streams and a third one, x264's --preset faster --tune zerolatency
 --no-cabac --no-8x8dct --weightp 0 --qp 26 (1 IDR with I4x4 + 2 P, the
 last over two references); every picture takes the device route (the
@@ -104,8 +109,19 @@ reference of anchor 68), and the syntax-tensor CABAC route at 1080p
 (host_cabac_1080p: TorchEncoder.host_entropy with --cabac, whose access
 units must equal the transcode route's, in the full-feature and the
 B-frame configuration of tests/test_cabac_transcode.py, the C coder's
-ms per slice printed).  Last, the command
-line (x264vfw_tpu_torch/cli.py) encodes a Y4M file to MP4 on the card,
+ms per slice printed), BASELINE config 3's two passes at 1080p
+(ratecontrol_1080p: the default session with --bitrate 6000 --pass 1
+--stats, then --pass 2, over 16 frames; one stats line per frame, pass
+2 reads them and its QPs differ from pass 1's, one deblock launch per I
+and P frame; each pass's fps, ms per I, P and B frame and kb/s against
+6000 printed) and TorchEncoder.encode_gop_batch at bench.py's
+device-capacity settings (gop_batch_1080p: 1 IDR + 12 P frames batched
+at R = 8, equal to encode_frame per frame and to encode_frame_pipelined
+with flush_pipeline; the SAD and memc kernels held against their plain
+versions on a batched frame's inputs and deblock_apply on its maps with
+chroma QP offsets 0 and -2; the batched P frames' fps printed).  Last,
+the command line (x264vfw_tpu_torch/cli.py) encodes a Y4M file to MP4 on
+the card,
 equal to a CompressSession's file.
 Each kernel's launch count is set to 0 just before a session and read
 just after it.  Prints one line per phase
@@ -178,12 +194,46 @@ DEC_DRAINS = 2            # decompress(b"") calls after the last AU
 SCALE_MAX_SHARE = 0.01    # samples the scaler may round the other way
 M_FRAMES, M_CUT = 8, 5   # the card-vs-CPU clip of the per-frame medium
 #                          lines: a full DPB of 3 at frames 3 and 4
+# rate control at 1080p (BASELINE config 3): the default session's two
+# passes at RC_KBPS over RC_FRAMES frames, pass 2 reading pass 1's stats
+RC_KBPS = 6000
+RC_FRAMES = 16
+CMDLINE_PASS = "--bitrate {kbps} --pass {n} --stats {stats}"
+# TorchEncoder.encode_gop_batch at bench.py's device-capacity settings
+# (bench.py:160-188): 1 IDR + CAP_FRAMES - 1 P frames in one batch, the
+# search at R = 8; the deblock kernel also on its maps with this chroma
+# QP offset
+CAP_CFG = dict(qp=26, keyint=250, search_range=8, deblock=True,
+               aq_strength=1.0, trellis=True, partitions=True)
+CAP_FRAMES = 13
+CAP_QPC_OFFSET = -2
+# the rate-control and signalling lines on the card-vs-CPU clip; the
+# default session's over RC_SMALL_FRAMES frames
+CMDLINE_VF_ABR = "--preset veryfast --tune zerolatency --bitrate 300"
+CMDLINE_VFB_ABR = "--preset veryfast --bitrate 300"
+CMDLINE_VBV_HRD = (CMDLINE_VF_ABR + " --vbv-maxrate 300 --vbv-bufsize 30 "
+                   "--nal-hrd cbr --aud")
+CMDLINE_PARTS_CRF = ("--preset ultrafast --tune zerolatency --me esa "
+                     "--deblock 0:0 --partitions p8x8 --subme 7")
+CMDLINE_CQO = CMDLINE_PARTS_CRF + " --chroma-qp-offset -2"
+CMDLINE_CQO_B = "--chroma-qp-offset 3"
+CMDLINE_VUI = (CMDLINE + " --sar 16:11 --range pc --colorprim bt709 "
+               "--transfer bt709 --colormatrix bt709 --fps 30000/1001 "
+               "--level 4.1")
+RC_SMALL_FRAMES = 12
+# cropped frames: 8 columns and 8 rows off the coded 128x96
+CROP_SIZE = (120, 88)
+# encode_gop_batch and the pipelined route on the card-vs-CPU clip: an
+# IDR inside the clip
+CAP_SMALL = dict(CAP_CFG, keyint=5)
+CAP_SMALL_FRAMES = 9
 # (command line, input format, container) of the card-vs-CPU lines that
 # hold conversion, muxers and telemetry
 SURFACE_LINES = (("--psnr --ssim", "bgra", "mkv"),
                  (CMDLINE_VF + " --psnr", "nv12", "mp4"),
                  ("--preset ultrafast --crf 23 --threads 4", "yuyv", "flv"),
-                 ("--preset superfast --crf 23", "rgb24", "avi"))
+                 ("--preset superfast --crf 23", "rgb24", "avi"),
+                 (CMDLINE_VUI, "i420", "mp4"))
 # the transcode (BASELINE config 5): a 4K CAVLC source with slice 2's
 # options (1 IDR + 3 P), decoded on the device route, scaled to 1080p and
 # re-encoded with the JAX package's default transcode params
@@ -390,6 +440,8 @@ def as_format(fmt: str, frame):
     'rgb24', 'nv12' (y, interleaved uv) or 'yuyv' (packed 4:2:2, chroma
     rows doubled)."""
     y, u, v = frame
+    if fmt == "i420":
+        return frame
     if fmt == "bgra":
         return to_bgra(y, u, v)
     if fmt == "rgb24":
@@ -1675,7 +1727,11 @@ def main() -> int:
                  # x264's last four presets (placebo's clip has no cut)
                  *((cmd + " --min-keyint 2", live_b, [0, B_CUT])
                    for cmd in PRESET_LINES),
-                 (CMDLINE_PLACEBO, placebo_small, [0]))
+                 (CMDLINE_PLACEBO, placebo_small, [0]),
+                 # rate control and the signalling options
+                 (CMDLINE_VF_ABR, live, None), (CMDLINE_VFB_ABR, live_b, None),
+                 (CMDLINE_VBV_HRD, live, None), (CMDLINE_CQO, small[:4], None),
+                 (CMDLINE_CQO_B, live_b[:RC_SMALL_FRAMES], None))
         esa_cmd = CMDLINE_MZL + " --min-keyint 2 --me esa"
         sizes, idrs = {}, {}
         for cmd, clip_s, want_idr in lines:
@@ -1730,7 +1786,7 @@ def main() -> int:
             check(files[DEV] == files["cpu"] and ends[DEV] == ends["cpu"]
                   and len(files["cpu"]) > 0, f"card and CPU {ext} files or "
                   f"end() stats differ for {cmd!r} ({fmt} in)")
-            if ext == "mp4":
+            if fmt == "nv12":
                 mp4_small = files[DEV]
             check(("psnr" in ends["cpu"]) == ("--psnr" in cmd),
                   f"{cmd!r} reports PSNR")
@@ -1761,6 +1817,66 @@ def main() -> int:
                   "card's, the CPU's and the transcode route's streams "
                   f"differ at {SMALL_SIZE}")
             sizes[f"host CABAC {name}"] = len(got[DEV, True])
+        # the default session's two passes at 300 kb/s, pass 2 reading the
+        # device's own pass-1 stats: both streams and the stats file
+        from x264vfw_tpu_torch.api import DecompressSession
+        rc_small = live_b[:RC_SMALL_FRAMES]
+        two_pass = {}
+        for d in dict.fromkeys((DEV, "cpu")):
+            stats = os.path.join(tmp, f"small_{d}.stats")
+            two_pass[d] = []
+            for n in (1, 2):
+                s = CompressSession(extra_cmdline=CMDLINE_PASS.format(
+                    n=n, kbps=300, stats=stats), device=d)
+                s.begin(*SMALL_SIZE)
+                two_pass[d].append(b"".join(s.compress(fr) for fr in
+                                            rc_small) + s.end()["tail"])
+                if n == 1:
+                    with open(stats, "rb") as fh:
+                        two_pass[d].append(fh.read())
+        check(two_pass[DEV] == two_pass["cpu"], "card and CPU two-pass "
+              "streams or pass-1 stats files differ")
+        check(len(two_pass["cpu"][1].splitlines()) == RC_SMALL_FRAMES,
+              "one stats line per frame")
+        sizes["two-pass"] = len(two_pass["cpu"][0]) + len(two_pass["cpu"][2])
+        # cropped frames (8 columns, 8 rows): the per-frame partition line
+        # and the default session, each stream decoded on its device
+        crop_lines = ((CMDLINE_PARTS_CRF, moving_clip(*CROP_SIZE, 4, seed=33)),
+                      (CMDLINE_MED, moving_clip(*CROP_SIZE, RC_SMALL_FRAMES,
+                                                seed=34)))
+        for cmd, clip_c in crop_lines:
+            got, dec = {}, {}
+            for d in dict.fromkeys((DEV, "cpu")):
+                s = CompressSession(extra_cmdline=cmd, device=d)
+                s.begin(*CROP_SIZE)
+                got[d] = b"".join(s.compress(fr) for fr in clip_c) + \
+                    s.end()["tail"]
+                dec[d] = run_decoder(DecompressSession(device=d),
+                                     split_aus(got[d]), CROP_SIZE)
+            check(got[DEV] == got["cpu"], f"card and CPU outputs differ at "
+                  f"{CROP_SIZE} for {cmd!r}")
+            check(same_outputs(dec[DEV], dec["cpu"]), f"card and CPU decodes "
+                  f"of the {CROP_SIZE} stream of {cmd!r} differ")
+            check(all(o[0].shape == CROP_SIZE[::-1] for o in dec["cpu"]),
+                  f"decoded frames cropped to {CROP_SIZE}")
+            sizes[f"{cmd} at {CROP_SIZE}"] = len(got["cpu"])
+        # TorchEncoder.encode_gop_batch and the pipelined route (an IDR
+        # inside the clip)
+        cap_small = moving_clip(*SMALL_SIZE, CAP_SMALL_FRAMES, seed=35)
+        cfg_c = EncoderConfig(width=SMALL_SIZE[0], height=SMALL_SIZE[1],
+                              **CAP_SMALL)
+        routes = {}
+        for d in dict.fromkeys((DEV, "cpu")):
+            batch = TorchEncoder(cfg_c, device=d).encode_gop_batch(cap_small)
+            e = TorchEncoder(cfg_c, device=d)
+            routes[d] = (batch, [e.encode_frame_pipelined(*f)
+                                 for f in cap_small] + [e.flush_pipeline()])
+        check(routes[DEV] == routes["cpu"], "card and CPU encode_gop_batch "
+              "or pipelined AUs differ")
+        batch, piped = routes["cpu"]
+        check(piped[0] is None and piped[1:] == batch,
+              "the pipelined route's AUs are encode_gop_batch's, one late")
+        sizes["encode_gop_batch"] = len(b"".join(batch))
         cfg_s = EncoderConfig(width=SMALL_SIZE[0], height=SMALL_SIZE[1],
                               qp=26, keyint=GOP_LEN, search_range=16,
                               deblock=True, partitions=True,
@@ -1833,7 +1949,6 @@ def main() -> int:
 
         # ---- 13. decode_1080p: the decoder on the card -------------------
         t = time.time()
-        from x264vfw_tpu_torch.api import DecompressSession
         from x264vfw_tpu_torch.decode import device_decode as ddec
         # the third stream: I4x4 in the I frame, two references in the
         # last P
@@ -2525,7 +2640,203 @@ def main() -> int:
                        for k in KERNELS}
         del clip_hc
 
-        # ---- 19. the command line on the card ------------------------------
+        # ---- 19. ratecontrol_1080p: BASELINE config 3's two passes -------
+        t = time.time()
+        clip_rc = moving_clip(w, h, RC_FRAMES, seed=40, texture=structured)
+        stats_rc = os.path.join(tmp, "x264vfw.stats")
+        plain = {"pgop": dfin.encode_pgop_slots,
+                 "bgop": dfin.encode_bgop_slots}
+        rc_passes, launches_rc = {}, {}
+        for n in (1, 2):
+            sess = CompressSession(extra_cmdline=CMDLINE_PASS.format(
+                n=n, kbps=RC_KBPS, stats=stats_rc), device=DEV)
+            sess.begin(w, h)
+            enc = sess.encoder
+            ev = {"I": [], "P": [], "B": []}
+            psnr_i = []
+
+            def span(fn, kind, ev=ev):
+                def run(*a, **k):
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    res = fn(*a, **k)
+                    e1.record()
+                    ftype, nfr = kind(*a, **k)
+                    ev[ftype].append((e0, e1, nfr))
+                    return res
+                return run
+
+            def frame(y, *a, _fn=span(enc.encode_frame, lambda *a, force_idr=None,
+                                      **k: ("I" if force_idr else "P", 1)),
+                      _enc=enc, _psnr=psnr_i, **k):
+                res = _fn(y, *a, **k)
+                if k.get("force_idr"):
+                    _psnr.append(psnr(_enc.last_recon[0], y))
+                return res
+
+            enc.encode_frame = frame
+            dfin.encode_pgop_slots = span(
+                plain["pgop"], lambda rows, *a, **k: ("P", rows.shape[0]))
+            dfin.encode_bgop_slots = span(
+                plain["bgop"], lambda rows, *a, **k: ("B", rows.shape[0]))
+            try:
+                for m in mods.values():
+                    m.LAUNCHES = 0
+                t1 = time.time()
+                outs = [sess.compress(fr) for fr in clip_rc]
+                end = sess.end()
+                torch.cuda.synchronize()
+                wall = time.time() - t1
+                launches_rc[n] = {k: m.LAUNCHES for k, m in mods.items()}
+            finally:
+                dfin.encode_pgop_slots = plain["pgop"]
+                dfin.encode_bgop_slots = plain["bgop"]
+            stats = [(st.frame_type, st.qp, st.bits) for st in sess.rc.stats]
+            types = "".join(ft for ft, _, _ in stats)
+            vcl = [u for u in split_annexb(b"".join(outs) + end["tail"])
+                   if u.nal_unit_type in (1, 5)]
+            check(len(stats) == len(vcl) == RC_FRAMES and types[0] == "I"
+                  and "B" in types, f"pass {n}: frame types {types}")
+            check(launches_rc[n] == {"sad": 0, "memc": 0, "deblock":
+                                     RC_FRAMES - types.count("B")},
+                  f"pass {n} launches {launches_rc[n]}: want one deblock "
+                  f"per I and P frame of {types}")
+            # pass 2's I frame takes a high QP at this rate
+            check(min(psnr_i) > (30.0 if n == 1 else 25.0),
+                  f"pass {n}: PSNR of the I frame {psnr_i}")
+            if n == 1:
+                with open(stats_rc) as fh:
+                    lines_rc = [ln for ln in fh if ln.strip()]
+                check(len(lines_rc) == RC_FRAMES, f"pass 1 wrote "
+                      f"{len(lines_rc)} stats lines for {RC_FRAMES} frames")
+            else:
+                check(len(sess.rc._stats_in or []) == RC_FRAMES,
+                      "pass 2 read pass 1's stats")
+            rc_passes[n] = {
+                "fps": round(RC_FRAMES / wall, 3), "wall_s": round(wall, 3),
+                "kbps": round(end["kbps"], 1), "target_kbps": RC_KBPS,
+                "types": types, "qps": [qp for _, qp, _ in stats],
+                "ms_per_frame": {k: [round(a.elapsed_time(b) / c, 1)
+                                     for a, b, c in v]
+                                 for k, v in ev.items()},
+                "psnr_i": round(psnr_i[0], 2), "launches": launches_rc[n]}
+        check(rc_passes[1]["qps"] != rc_passes[2]["qps"],
+              "pass 2's QPs are pass 1's: the stats were not used")
+        phase("ratecontrol_1080p", t, passes=rc_passes, card=repr(card))
+        del clip_rc
+
+        # ---- 20. gop_batch_1080p: bench.py's device capacity -------------
+        t = time.time()
+        cfg_cap = EncoderConfig(width=w, height=h, **CAP_CFG)
+        clip_cap = moving_clip(w, h, CAP_FRAMES, seed=41)
+        enc = TorchEncoder(cfg_cap, device=DEV)
+        t1 = time.time()
+        per_frame = [enc.encode_frame(*f) for f in clip_cap]
+        torch.cuda.synchronize()
+        wall_f = time.time() - t1
+        # the batch's wall time, and the last batched frame's inputs
+        plain = {"p": dfin.encode_p_slots,
+                 "batch": TorchEncoder._encode_p_batch}
+        caught, batch_s = [], []
+
+        def keep_p(*a, **k):
+            res = plain["p"](*a, **k)
+            caught[:] = [(a, res[-1])]
+            return res
+
+        def timed_batch(self, *a, **k):
+            torch.cuda.synchronize()
+            t1 = time.time()
+            res = plain["batch"](self, *a, **k)
+            torch.cuda.synchronize()
+            batch_s.append(time.time() - t1)
+            return res
+
+        enc = TorchEncoder(cfg_cap, device=DEV)
+        dfin.encode_p_slots = keep_p
+        TorchEncoder._encode_p_batch = timed_batch
+        try:
+            for m in mods.values():
+                m.LAUNCHES = 0
+            t1 = time.time()
+            batched = enc.encode_gop_batch(clip_cap)
+            torch.cuda.synchronize()
+            wall_b = time.time() - t1
+            launches_cap = {k: m.LAUNCHES for k, m in mods.items()}
+        finally:
+            dfin.encode_p_slots = plain["p"]
+            TorchEncoder._encode_p_batch = plain["batch"]
+        check(batched == per_frame, "encode_gop_batch's AUs differ from "
+              "encode_frame's")
+        check(len(batch_s) == 1, f"{len(batch_s)} batches for one run of P")
+        n_p = CAP_FRAMES - 1
+        check(launches_cap == {"sad": n_p, "memc": n_p,
+                               "deblock": CAP_FRAMES},
+              f"encode_gop_batch launches {launches_cap}: want one SAD and "
+              f"memc per P frame ({n_p}), one deblock per frame")
+        psnr_cap = psnr(enc.last_recon[0], clip_cap[-1][0])
+        check(psnr_cap > 30.0, f"PSNR of the last batched frame {psnr_cap}")
+        enc = TorchEncoder(cfg_cap, device=DEV)
+        t1 = time.time()
+        piped = [enc.encode_frame_pipelined(*f) for f in clip_cap]
+        piped.append(enc.flush_pipeline())
+        torch.cuda.synchronize()
+        wall_p = time.time() - t1
+        check(piped[0] is None and piped[1:] == per_frame,
+              "the pipelined route's AUs differ from encode_frame's")
+        # the kernels on the last batched P frame's inputs at R = 8, and
+        # the deblock kernel on its maps with a chroma QP offset
+        (a_src, a_ry, _, _, a_qp, *_), out = caught[-1]
+        # (not H, W and R: the kernels record reads the batched veryfast
+        # phase's)
+        rc_ = CAP_CFG["search_range"]
+        hc, wc = 16 * enc.mbh, 16 * enc.mbw
+        src8 = a_src[:hc * wc].reshape(hc, wc).contiguous()
+        refp_r = dv._edge_pad(a_ry, rc_).to(torch.uint8).contiguous()
+        refp_m = dv._edge_pad(a_ry, rc_ + 8).to(torch.uint8).contiguous()
+        mins = sadk.sad_partition_minima(src8, refp_r, rc_)
+        part, mv8i = partition_decide_from_minima(mins, rc_, a_qp)
+        sub_lv = cfg_cap.subpel
+        check(torch.equal(memck.partition_refine_mc_plain(
+            src8, refp_m, mv8i, part, rc_, sub_lv)[0], out["mv8"]),
+            "plain memc on the batched frame's inputs gives its mv8")
+        recon = [out[k].contiguous()
+                 for k in ("recon_y", "recon_u", "recon_v")]
+        maps = {o: dv.loop_filter_maps(out, a_qp, enc.mbh, enc.mbw, False,
+                                       0, 0, o)
+                for o in (0, CAP_QPC_OFFSET)}
+        check(any(not torch.equal(a, b) for a, b in
+                  zip(maps[0], maps[CAP_QPC_OFFSET])),
+              "the chroma QP offset reaches the deblock maps")
+        cap_err = {
+            "sad": max_diff(mins, sadk.sad_partition_minima_plain(
+                src8, refp_r, rc_)),
+            "memc": max_diff(
+                memck.partition_refine_mc(src8, refp_m, mv8i, part, rc_,
+                                          sub_lv),
+                memck.partition_refine_mc_plain(src8, refp_m, mv8i, part,
+                                                rc_, sub_lv)),
+            **{f"deblock_qpc{o}": max_diff(
+                dbk.deblock_apply(*recon, *m),
+                dbk.deblock_apply_plain(*recon, *m))
+               for o, m in maps.items()}}
+        check(not any(cap_err.values()),
+              f"kernels vs plain on the batched frame's inputs: {cap_err}")
+        for k in KERNELS:
+            err[k] = max([err[k]] + [d for n_, d in cap_err.items()
+                                     if n_.startswith(k)])
+        phase("gop_batch_1080p", t, frames=CAP_FRAMES,
+              batch_p_fps=round(n_p / batch_s[0], 3),
+              batch_p_ms=round(batch_s[0] * 1e3 / n_p, 2),
+              batch_wall_s=round(wall_b, 3),
+              per_frame_wall_s=round(wall_f, 3),
+              pipelined_wall_s=round(wall_p, 3), psnr_last=round(psnr_cap, 2),
+              launches=launches_cap, session_max_abs_err=cap_err,
+              card=repr(card))
+        del clip_cap, caught, out, recon, maps
+
+        # ---- 21. the command line on the card ------------------------------
         t = time.time()
         y4m, out_cli = os.path.join(tmp, "in.y4m"), os.path.join(tmp, "cli.mp4")
         clip_c = moving_clip(*SMALL_SIZE, 6, seed=12)
@@ -2549,7 +2860,7 @@ def main() -> int:
               "the CLI's .mp4 equals a CompressSession's from the same frames")
         phase("cli", t, bytes=len(cli_bytes), identical=True)
 
-        # ---- 20. the record -------------------------------------------------
+        # ---- 22. the record -------------------------------------------------
         meta = {
             "sad": ("csrc/sad.cu", "x264vfw_tpu/ops/pallas/sad.py:239"),
             "memc": ("csrc/memc.cu", "x264vfw_tpu/ops/pallas/memc.py:253"),
@@ -2581,6 +2892,8 @@ def main() -> int:
                 "threads_launches": launches_th[k],
                 "placebo_launches": launches_pl[k],
                 "host_cabac_launches": launches_hc[k],
+                "ratecontrol_launches": [launches_rc[n][k] for n in (1, 2)],
+                "gop_batch_launches": launches_cap[k],
                 "build_s": build_s[k], "ptxas": ptxas_report(k),
                 "shape": [H, W, R], "card": card}
             if k == "sad":

@@ -91,7 +91,8 @@ def refs():
 
 def spied_session(cmd: str, clip: list, w: int = W, h: int = H) -> dict:
     """A port session on the CPU over clip, with: the compress() returns,
-    tail and delay; every (display index, frame type) in decode order;
+    tail, end()'s kb/s, the rate controller and its (type, QP, bits)
+    per frame, and delay; every (display index, frame type) in decode order;
     the I and P frames' reference planes in decode order, and each P
     frame's ref_idx field (None with one reference); the CAVLC B slices
     handed to the transcoder and what it returned; the weights of each P
@@ -167,7 +168,10 @@ def spied_session(cmd: str, clip: list, w: int = W, h: int = H) -> dict:
         s = CompressSession(extra_cmdline=cmd, device="cpu")
         s.begin(w, h)
         outs = [s.compress(f) for f in clip]
-        rec.update(outs=outs, tail=s.end()["tail"],
+        end = s.end()
+        rec.update(outs=outs, tail=end["tail"], kbps=end["kbps"],
+                   rc=s.rc, rc_stats=[(st.frame_type, st.qp, st.bits)
+                                      for st in s.rc.stats],
                    delay=s.frames_info().delay, cfg=s.encoder.cfg,
                    enc=s.encoder, batched=s._pipe is not None)
     finally:

@@ -28,7 +28,10 @@ kernel held against its plain version on a B frame's L0 and L1 inputs
 and on an anchor's deepest reference), the syntax-tensor CABAC route
 against the transcode route (and on the card-vs-CPU clip in all four of
 tests/test_cabac_transcode.py's configurations, beside the four presets'
-sessions), and the command line.
+sessions), the two passes of the default session (8 frames) and
+encode_gop_batch with the pipelined route (1 I + 4 P), the rate-control,
+signalling, cropped (56x40) and batched lines of card against CPU, and
+the command line.
 Also: without a card the script exits non-zero and prints no result.
 """
 
@@ -102,6 +105,16 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     # the transcode from the session size (the script's 4K) to half of it
     monkeypatch.setattr(cs, "TC_SRC_SIZE", (128, 96))
     monkeypatch.setattr(cs, "TC_DST_SIZE", (64, 48))
+    # the two passes over 8 frames (the script's 16): 1 I, 2 P, 5 B; the
+    # batch of 4 P frames after the IDR (the script's 12); the cropped
+    # lines at 56x40 (the script's 120x88), the default session's lines
+    # on the small clip over 6 frames, the batched routes over 7 (an IDR
+    # at 5)
+    monkeypatch.setattr(cs, "RC_FRAMES", 8)
+    monkeypatch.setattr(cs, "CAP_FRAMES", 5)
+    monkeypatch.setattr(cs, "CROP_SIZE", (56, 40))
+    monkeypatch.setattr(cs, "RC_SMALL_FRAMES", 6)
+    monkeypatch.setattr(cs, "CAP_SMALL_FRAMES", 7)
     monkeypatch.setattr(cs, "card_line", lambda: "cpu, 0 W")
     monkeypatch.setattr(cs, "sm_clock_hz", lambda: 1.98e9)
     monkeypatch.setattr(cs, "sad_sass_per_sad4", lambda: None)
@@ -199,6 +212,11 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
     # the syntax-tensor CABAC route: full-feature (I + 4 P: SAD and memc
     # per P frame) and bframes (I, 2 P, 3 B: SAD once per P, twice per B)
     assert [k["host_cabac_launches"] for k in kern] == [4 + 8, 4, 5 + 3]
+    # the two passes: one deblock per I and P frame; the batched
+    # capacity run: one SAD and memc per P frame, one deblock per frame
+    assert [k["ratecontrol_launches"] for k in kern] == [[0, 0], [0, 0],
+                                                         [3, 3]]
+    assert [k["gop_batch_launches"] for k in kern] == [4, 4, 5]
     phases = {ln.split("] ")[1].split(":")[0] for ln in lines
               if ln.startswith("[")}
     assert {"session_1080p_ultrafast_crf23", "session_1080p_hier_qpel_deblock",
@@ -206,9 +224,12 @@ def test_rehearsal_on_cpu(monkeypatch, capsys):
             "session_1080p_medium", "session_1080p_measured", "card_vs_cpu",
             "decode_1080p", "transcode_4k", "gop_1080p",
             "session_1080p_threads", "placebo_1080p", "host_cabac_1080p",
-            "cli"} <= phases
+            "ratecontrol_1080p", "gop_batch_1080p", "cli"} <= phases
     assert kern[2]["launches_per_frame"] == 1
     assert kern[0]["slice1_launches"] == 3
+    # the record's shape is the batched veryfast anchor's (R = 16), not the
+    # capacity batch's (R = 8)
+    assert kern[0]["shape"] == [96, 128, 16]
     H, W, R = kern[0]["shape"]     # one VABSDIFF4 per 4 byte differences
     assert kern[0]["int_bound_ms"] == pytest.approx(
         (2 * R + 1) ** 2 * H * W / 4 / (132 * 64 * 1.98e9) * 1e3)

@@ -86,6 +86,29 @@ def test_encoder_and_state_without_cuda_raise(no_cuda):
         state_from_numpy(z, z[:8, :8], z[:8, :8], frame_idx=1)
 
 
+@pytest.mark.parametrize("cmd", ["--bitrate 300", "--bitrate 300 --pass 1",
+                                 "--bitrate 300 --vbv-maxrate 300 "
+                                 "--vbv-bufsize 150 --nal-hrd cbr"])
+def test_rate_controlled_session_without_cuda_raises(no_cuda, cmd):
+    from x264vfw_tpu_torch.api import CompressSession
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CompressSession(extra_cmdline=cmd)
+
+
+@pytest.mark.parametrize("method", ["encode_gop_batch",
+                                    "encode_frame_pipelined"])
+def test_batched_entry_points_need_a_card(no_cuda, method):
+    """encode_gop_batch and encode_frame_pipelined are methods of an
+    encoder, which takes the card unless device='cpu' is given: without
+    one it raises before either can run."""
+    from x264vfw_tpu_torch.encode.ref_encoder import EncoderConfig
+    from x264vfw_tpu_torch.encode.torch_encoder import TorchEncoder
+    assert callable(getattr(TorchEncoder, method))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchEncoder(EncoderConfig(qp=26, search_range=8, partitions=True,
+                                   deblock=True))
+
+
 @pytest.mark.parametrize("make", ["session", "session_host", "decoder"])
 def test_decoder_without_cuda_raises(no_cuda, make):
     """DecompressSession() (the device route and the output conversion on

@@ -25,12 +25,19 @@ import hashlib
 import os
 
 import numpy as np
+import torch
+
+# The port's tests run small tensors, on which PyTorch's intra-op thread
+# pool costs more than it saves (most of all beside other test workers
+# on the same cores): one thread per test process.
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_DIR = os.path.join(ROOT, "tests", "jax_refs")
 NAMES = ("slice1", "slice2", "live", "l3", "l4", "core", "batched",
          "calls", "multiref", "units", "surface", "decode", "parallel",
-         "presets", "host_cabac")
+         "presets", "host_cabac", "ratecontrol", "signalling", "crop",
+         "encoder_batch")
 SCRIPT = "tools/make_torch_jax_refs.py"
 
 

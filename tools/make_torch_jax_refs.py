@@ -136,9 +136,11 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
-if not sys.argv[1:] or "parallel" in sys.argv[1:]:
+if not sys.argv[1:] or {"parallel", "ratecontrol", "ratecontrol:gop"} \
+        & set(sys.argv[1:]):
     # the GOP-parallel cases run on an 8-device host mesh, as the JAX
-    # package's tests do (tests/conftest.py)
+    # package's tests do (tests/conftest.py); the rate-controlled one on
+    # two of its devices
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " "
                                "--xla_force_host_platform_device_count=8"
                                ).strip()
@@ -155,8 +157,10 @@ import test_torch_batched_live as tbl  # noqa: E402
 import test_torch_bframes as tbf  # noqa: E402
 import test_torch_cavlc_pack as tcp  # noqa: E402
 import test_torch_cli as tcli  # noqa: E402
+import test_torch_crop as tcrop  # noqa: E402
 import test_torch_deblock as tdb  # noqa: E402
 import test_torch_encode_core as tec  # noqa: E402
+import test_torch_encoder_batch as teb  # noqa: E402
 import test_torch_hier as th  # noqa: E402
 import test_torch_sad as tsd  # noqa: E402
 import test_torch_intra4x4 as ti  # noqa: E402
@@ -169,7 +173,9 @@ import test_torch_host_cabac as thc  # noqa: E402
 import test_torch_host_entropy as the  # noqa: E402
 import test_torch_pipeline as tpl  # noqa: E402
 import test_torch_presets as tpr  # noqa: E402
+import test_torch_ratecontrol as trc  # noqa: E402
 import test_torch_session as ts  # noqa: E402
+import test_torch_signalling as tsig  # noqa: E402
 import test_torch_telemetry as ttm  # noqa: E402
 import test_torch_transform as ttf  # noqa: E402
 import test_torch_transcode as ttc  # noqa: E402
@@ -830,6 +836,214 @@ def host_cabac_refs(digest) -> dict:
     return out
 
 
+def jax_session(cmd: str, w: int, h: int, frames: list, output=None,
+                pipe=None, sink=None):
+    """A JAX CompressSession over frames: (session, compress() returns,
+    end()).  pipe(session) replaces the session's pipeline after
+    begin(); sink receives its log messages."""
+    s = CompressSession(extra_cmdline=cmd)
+    if sink is not None:
+        s.log.sink = sink
+    s.begin(w, h, output=output)
+    if pipe is not None:
+        s._pipe = pipe(s)
+    outs = [s.compress(f) for f in frames]
+    return s, outs, s.end()
+
+
+def put_session(out: dict, prefix: str, s, outs: list, end: dict) -> None:
+    """<prefix>_out_<i>, _tail, _kbps and rate control's per-frame
+    _rc_type, _rc_qp and _rc_bits."""
+    put_aus(out, f"{prefix}_out", outs)
+    out[f"{prefix}_tail"] = np.frombuffer(end["tail"], np.uint8)
+    out[f"{prefix}_kbps"] = np.float64(end["kbps"])
+    out[f"{prefix}_rc_type"] = np.array([st.frame_type for st in s.rc.stats])
+    out[f"{prefix}_rc_qp"] = np.array([st.qp for st in s.rc.stats], np.int64)
+    out[f"{prefix}_rc_bits"] = np.array([st.bits for st in s.rc.stats],
+                                        np.int64)
+
+
+def put_decoded(out: dict, line: str, fmt: str, stream: bytes, w: int,
+                h: int) -> None:
+    """The JAX DecompressSession's returns over stream in fmt (the host
+    route, whose planes the device route's equal)."""
+    from x264vfw_tpu.api import DecompressSession as JDecompress
+    got = tsig.decode(JDecompress(use_device=False), stream, fmt, w, h)
+    out[f"{line}_{fmt}_calls"] = np.int64(len(got))
+    for i, arrays in enumerate(got):
+        for k, a in enumerate(arrays):
+            out[tsig.decoded_key(line, fmt, i, k)] = np.asarray(a, np.uint8)
+
+
+def ratecontrol_lines(names) -> dict:
+    out = {}
+    for name in names:
+        cmd = {**trc.PER_FRAME, **trc.BATCHED}[name]
+        put_session(out, name, *jax_session(cmd, trc.W, trc.H,
+                                            trc.clip(name)))
+    return out
+
+
+def ratecontrol_two_pass() -> dict:
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        stats = os.path.join(tmp, "x264vfw.stats")
+        for n in (1, 2):
+            put_session(out, f"pass{n}", *jax_session(
+                trc.PASS.format(n=n, stats=stats), trc.W, trc.H,
+                trc.medium_clip()))
+            if n == 1:
+                with open(stats, "rb") as fh:
+                    out["pass1_stats"] = np.frombuffer(fh.read(), np.uint8)
+    return out
+
+
+def ratecontrol_gop() -> dict:
+    """The sharded session on a mesh of GOP_DEVICES devices."""
+    from jax.sharding import Mesh
+    from x264vfw_tpu.parallel import gop as jgop
+    mesh = Mesh(np.array(jax.devices()[:trc.GOP_DEVICES]), ("dp",))
+
+    def pipe(s):
+        assert s._shard
+        return jgop.GopShardPipeline(s.encoder, s.rc, mesh=mesh,
+                                     gop_len=min(s.params.keyint, 32))
+
+    out = {}
+    put_session(out, "gop", *jax_session(trc.GOP_LINE, trc.W, trc.H,
+                                         trc.gop_clip(), pipe=pipe))
+    return out
+
+
+RATECONTROL_PARTS = {
+    "frame": lambda: ratecontrol_lines(trc.PER_FRAME),
+    "batched": lambda: ratecontrol_lines(trc.BATCHED),
+    "twopass": ratecontrol_two_pass, "gop": ratecontrol_gop}
+
+
+def signalling_cqo() -> dict:
+    out = {}
+    for name in ("cqo_frame", "cqo_batched"):
+        put_session(out, name, *jax_session(tsig.LINES[name], tsig.W,
+                                            tsig.H, tsig.clip(name)))
+    return out
+
+
+def signalling_vui() -> dict:
+    import tempfile
+    out = {}
+    for name in tsig.DECODED:
+        s, outs, end = jax_session(tsig.LINES[name], tsig.W, tsig.H,
+                                   tsig.clip(name))
+        put_session(out, name, s, outs, end)
+        put_decoded(out, name, "rgb24", b"".join(outs) + end["tail"],
+                    tsig.W, tsig.H)
+    with tempfile.TemporaryDirectory() as tmp:
+        for ext in tsig.CONTAINERS:
+            path = os.path.join(tmp, f"vui.{ext}")
+            jax_session(tsig.LINES["vui"], tsig.W, tsig.H, tsig.clip("vui"),
+                        output=path)
+            with open(path, "rb") as fh:
+                out[f"vui_{ext}"] = np.frombuffer(fh.read(), np.uint8)
+    return out
+
+
+def signalling_hrd() -> dict:
+    out = {}
+    for name in ("hrd_vbr", "hrd_cbr"):
+        put_session(out, name, *jax_session(tsig.LINES[name], tsig.W,
+                                            tsig.H, tsig.clip(name)))
+    msgs = []
+    s = CompressSession(extra_cmdline=tsig.NO_VBV)
+    s.log.sink = lambda lvl, m: msgs.append(m)
+    s.begin(tsig.W, tsig.H)
+    assert s.encoder.sps.nal_hrd_present == 0
+    out["no_vbv_log"] = np.array(msgs)
+    return out
+
+
+SIGNALLING_PARTS = {"cqo": signalling_cqo, "vui": signalling_vui,
+                    "hrd": signalling_hrd}
+
+
+def crop_frame() -> dict:
+    """The per-frame lines, the measured one's cropped recons (as the
+    session pops them), end()'s PSNR and SSIM and its log."""
+    out = {}
+    s, outs, end = jax_session(tcrop.LINES["frame"], tcrop.W, tcrop.H,
+                               tcrop.clip("frame"))
+    put_session(out, "frame", s, outs, end)
+    put_decoded_all(out, "frame", b"".join(outs) + end["tail"])
+    popped, msgs = [], []
+    keep = TpuEncoder.pop_recon
+
+    def spy(self, d):
+        planes = keep(self, d)
+        popped.append(planes)
+        return planes
+
+    TpuEncoder.pop_recon = spy
+    try:
+        s, outs, end = jax_session(tcrop.LINES["measured"], tcrop.W,
+                                   tcrop.H, tcrop.clip("measured"),
+                                   sink=lambda lvl, m: msgs.append(m))
+    finally:
+        TpuEncoder.pop_recon = keep
+    put_session(out, "measured", s, outs, end)
+    for i, planes in enumerate(popped):
+        for p, a in zip("yuv", planes):
+            out[f"measured_recon_{i}_{p}"] = np.asarray(a, np.uint8)
+    out["measured_psnr"] = np.array([end["psnr"][k] for k in (
+        "y", "u", "v", "global", "global_all")], np.float64)
+    out["measured_ssim"] = np.float64(end["ssim"])
+    out["measured_log"] = np.array(msgs)
+    return out
+
+
+def put_decoded_all(out: dict, line: str, stream: bytes) -> None:
+    for fmt in tcrop.FORMATS:
+        put_decoded(out, line, fmt, stream, tcrop.W, tcrop.H)
+
+
+def crop_batched() -> dict:
+    out = {}
+    s, outs, end = jax_session(tcrop.LINES["batched"], tcrop.W, tcrop.H,
+                               tcrop.clip("batched"))
+    put_session(out, "batched", s, outs, end)
+    put_decoded_all(out, "batched", b"".join(outs) + end["tail"])
+    return out
+
+
+CROP_PARTS = {"frame": crop_frame, "batched": crop_batched}
+
+
+def encoder_batch_refs(digest) -> dict:
+    """Per configuration of test_torch_encoder_batch.CASES the JAX
+    encoder's encode_frame, encode_gop_batch and pipelined AUs
+    (<case>_<route>_<i>; the pipelined route's first return, None, is
+    <case>_pipe_first_none)."""
+    from x264vfw_tpu.encode.ref_encoder import EncoderConfig as JConfig
+    out = {"source_sha256": digest}
+    for case in teb.CASES:
+        got = teb.run_routes(lambda case=case: TpuEncoder(
+            teb.config(case, JConfig)), teb.clip(case))
+        out[f"{case}_pipe_first_none"] = np.bool_(got["pipe"][0] is None)
+        got["pipe"] = got["pipe"][1:]
+        for route, aus in got.items():
+            put_aus(out, f"{case}_{route}", aus)
+    return out
+
+
+def parts_refs(parts: dict):
+    def make(digest) -> dict:
+        out = {"source_sha256": digest}
+        for part in parts.values():
+            out.update(part())
+        return out
+    return make
+
+
 PRESET_PARTS = {name: (lambda name=name: preset_session(name))
                 for name in tpr.LINES}
 
@@ -858,8 +1072,14 @@ MAKERS = {"live": live_refs, "l3": l3_refs, "l4": l4_refs,
           "multiref": multiref_refs, "units": units_refs,
           "surface": surface_refs, "decode": decode_refs,
           "parallel": parallel_refs, "presets": presets_refs,
-          "host_cabac": host_cabac_refs}
-PARTS = {"multiref": MULTIREF_PARTS, "presets": PRESET_PARTS}
+          "host_cabac": host_cabac_refs,
+          "ratecontrol": parts_refs(RATECONTROL_PARTS),
+          "signalling": parts_refs(SIGNALLING_PARTS),
+          "crop": parts_refs(CROP_PARTS),
+          "encoder_batch": encoder_batch_refs}
+PARTS = {"multiref": MULTIREF_PARTS, "presets": PRESET_PARTS,
+         "ratecontrol": RATECONTROL_PARTS, "signalling": SIGNALLING_PARTS,
+         "crop": CROP_PARTS}
 
 
 def main() -> int:
@@ -879,7 +1099,15 @@ def main() -> int:
         out = refs.load(name) if os.path.exists(path) else {}
         out["source_sha256"] = digest
         for _, part in parts:
-            out.update(PARTS[name][part]())
+            fresh = PARTS[name][part]()
+            # a list the part writes anew (<prefix>_<i>) loses the old
+            # entries past its new length
+            lists = {k.rsplit("_", 1)[0] for k in fresh
+                     if k.rsplit("_", 1)[-1].isdigit()}
+            out = {k: v for k, v in out.items()
+                   if not (k.rsplit("_", 1)[-1].isdigit()
+                           and k.rsplit("_", 1)[0] in lists)}
+            out.update(fresh)
         np.savez_compressed(path, **out)
         print(path, os.path.getsize(path), "bytes")
         return 0

@@ -2,7 +2,9 @@
 
 CAVLC's table lookups and per-coefficient codes are data-parallel per
 block; only the suffix-length adaptation is a short (<= 16 step) chain,
-run as 16 vectorised steps over all blocks of a frame at once.  Together
+run as 16 table lookups over all blocks of a frame at once (its 7 states
+make each step a table), after which every level code is formed in one
+pass.  Together
 with encode/device_pack.py this keeps the whole entropy stage on the
 device; only packed bitstream bytes cross to the host.
 
@@ -106,48 +108,53 @@ def encode_blocks(levels: torch.Tensor, nC: torch.Tensor, max_coeffs: int):
     vals[:, 1] = (neg << shift).sum(-1)
     lens[:, 1] = t1
 
-    # ---- levels: descending-position chain (suffix length is sequential) --
+    # ---- levels: suffixLength is a chain in descending position order.
+    # It has 7 states (0..6), so each position's step is a table of the
+    # next state per state; the chain is 16 table lookups, and then every
+    # level code is formed at once from the state it met.
     active = nz & (snz >= t1[:, None])              # coded as a level code
     lc_all = torch.where(levels > 0, 2 * levels - 2, -2 * levels - 1)
     lc_all = lc_all - 2 * ((snz == t1[:, None]) & (t1[:, None] < 3)
                            & active).to(torch.int32)
-    sl = ((tc > 10) & (t1 < 3)).to(torch.int32)
-    zero = torch.zeros(N, dtype=torch.int32, device=dev)
+    states = torch.arange(7, dtype=torch.int32, device=dev)
+    s1 = states.clamp(min=1)
+    bump = (levels.abs()[:, :, None] > (3 << (s1 - 1))) & (s1 < 6)
+    step = torch.where(active[:, :, None], s1 + bump.to(torch.int32),
+                       states).to(torch.int64)      # (N, L, 7)
+    sl = ((tc > 10) & (t1 < 3)).to(torch.int64)[:, None]
+    met = torch.empty(N, L, dtype=torch.int64, device=dev)
     for j in range(L - 1, -1, -1):
-        a = active[:, j]
-        lc = lc_all[:, j]
-        sl1 = sl.clamp(min=1)
-        p = zero
-        suffix = zero
-        ssz = zero
-        a1 = (sl == 0) & (lc < 14)
-        p = torch.where(a1, lc, p)
-        a2 = (sl == 0) & (lc >= 14) & (lc < 30)
-        p = torch.where(a2, 14, p)
-        suffix = torch.where(a2, lc - 14, suffix)
-        ssz = torch.where(a2, 4, ssz)
-        lim = 15 << sl1
-        b1 = (sl > 0) & (lc < lim)
-        p = torch.where(b1, lc >> sl1, p)
-        suffix = torch.where(b1, lc & ((1 << sl1) - 1), suffix)
-        ssz = torch.where(b1, sl, ssz)
-        esc = ((sl == 0) & (lc >= 30)) | ((sl > 0) & (lc >= lim))
-        base = torch.where(sl == 0, 30, lim)
-        rem = (lc - base).clamp(min=0)
-        # floor(log2(rem / 4096 + 1)), exactly as the float32 frexp of the
-        # JAX code gives it for rem < 2^24
-        kk = bit_length((rem + 4096) >> 12) - 1
-        off = (4096 << kk) - 4096
-        p = torch.where(esc, 15 + kk, p)
-        suffix = torch.where(esc, rem - off, suffix)
-        ssz = torch.where(esc, 12 + kk, ssz)
-        code_val = (1 << ssz.to(torch.int64)) | suffix.to(torch.int64)
-        slot = 2 + (L - 1 - j)
-        vals[:, slot] = torch.where(a, code_val, 0)
-        lens[:, slot] = torch.where(a, p + 1 + ssz, 0)
-        new_sl = sl1 + ((levels[:, j].abs() > (3 << (sl1 - 1)))
-                        & (sl1 < 6)).to(torch.int32)
-        sl = torch.where(a, new_sl, sl)
+        met[:, j] = sl[:, 0]
+        sl = step[:, j].gather(1, sl)
+    sl = met.to(torch.int32)                        # the state at position j
+    sl1 = sl.clamp(min=1)
+    lc = lc_all
+    zero = torch.zeros_like(lc)
+    a1 = (sl == 0) & (lc < 14)
+    p = torch.where(a1, lc, zero)
+    a2 = (sl == 0) & (lc >= 14) & (lc < 30)
+    p = torch.where(a2, 14, p)
+    suffix = torch.where(a2, lc - 14, zero)
+    ssz = torch.where(a2, 4, zero)
+    lim = 15 << sl1
+    b1 = (sl > 0) & (lc < lim)
+    p = torch.where(b1, lc >> sl1, p)
+    suffix = torch.where(b1, lc & ((1 << sl1) - 1), suffix)
+    ssz = torch.where(b1, sl, ssz)
+    esc = ((sl == 0) & (lc >= 30)) | ((sl > 0) & (lc >= lim))
+    base = torch.where(sl == 0, 30, lim)
+    rem = (lc - base).clamp(min=0)
+    # floor(log2(rem / 4096 + 1)), exactly as the float32 frexp of the
+    # JAX code gives it for rem < 2^24
+    kk = bit_length((rem + 4096) >> 12) - 1
+    off = (4096 << kk) - 4096
+    p = torch.where(esc, 15 + kk, p)
+    suffix = torch.where(esc, rem - off, suffix)
+    ssz = torch.where(esc, 12 + kk, ssz)
+    code_val = (1 << ssz.to(torch.int64)) | suffix.to(torch.int64)
+    # position j's code in slot 2 + (L - 1 - j)
+    vals[:, 2:2 + L] = torch.where(active, code_val, 0).flip(-1)
+    lens[:, 2:2 + L] = torch.where(active, p + 1 + ssz, 0).flip(-1)
 
     # ---- total_zeros (slot 18) ----
     last_pos = torch.where(nz, idx, -1).amax(dim=-1)

@@ -31,7 +31,11 @@ slice, _finalize_i and _finalize_p; with --cabac the C CABAC coder
 (bitstream/cabac_native.py) writes the I, P and B slices from them, the
 syntax-tensor CABAC route (_encode_frame_cabac, _encode_b_cabac), every
 option of the config taken, the loop filter and the DPB as on the
-device-entropy route.
+device-entropy route.  encode_gop_batch (IDRs per frame, the P frames
+between them as one batch of encode_pgop_slots) and
+encode_frame_pipelined with flush_pipeline (one frame of output delay)
+are the JAX package's batched and pipelined entry points: CAVLC only,
+one reference, no weights, each frame's output sized exactly.
 
 Header conventions (SPS profile/level/DPB size, PPS, slice headers,
 version SEI) are the JAX package's, byte for byte.
@@ -148,6 +152,8 @@ class TorchEncoder:
         self.measure = False
         self._recon_q: dict[int, tuple] = {}
         self._last_b_recon: tuple | None = None
+        # encode_frame_pipelined's submitted frame, not yet packed
+        self._pipe_pending: tuple | None = None
 
     # -- telemetry hooks (PSNR/SSIM): recon per display index -------------
     def _stash_recon(self, d: int, planes: tuple | None = None) -> None:
@@ -298,10 +304,7 @@ class TorchEncoder:
         counter after the later anchor (PrevRefFrameNum + 1, §7.4.3),
         which it does not advance."""
         cfg = self.cfg
-        if qp is not None:
-            self.qp = int(min(max(qp, 0), 51))
-            self.qpc = int(tables.chroma_qp(self.qp,
-                                            self.pps.chroma_qp_index_offset))
+        self._set_qp(qp)
         self.poc = poc
         if cfg.cabac and self.host_entropy:
             return self._encode_b_cabac(y, u, v, ref0, ref1, mvcol)
@@ -331,10 +334,7 @@ class TorchEncoder:
         is_idr = (self.frame_idx % cfg.keyint) == 0 or self.ref is None
         if force_idr is not None:
             is_idr = force_idr or self.ref is None
-        if qp is not None:
-            self.qp = int(min(max(qp, 0), 51))
-            self.qpc = int(tables.chroma_qp(self.qp,
-                                            self.pps.chroma_qp_index_offset))
+        self._set_qp(qp)
         if cfg.cabac and self.host_entropy:
             return self._encode_frame_cabac(y, u, v, is_idr, qp_off)
         if self.host_entropy:
@@ -384,6 +384,155 @@ class TorchEncoder:
         if self.nref > 1:
             self.dpb = ([self.ref] + ([] if is_idr else self.dpb))[:self.nref]
         return self._wrap_frame(payload, nal_type, is_idr)
+
+    # -- the pipelined and batched entry points ----------------------------
+    # They write the device's CAVLC slices as they come (no CABAC
+    # transcode) and predict P frames from the last reference alone,
+    # without weights; the slice headers say so (one active reference, no
+    # weight table), and, as in the JAX package, the DPB of --ref N is
+    # left as it was.  The JAX package writes those slices under a PPS
+    # that may declare CABAC, and a stream so written does not decode:
+    # here --cabac is refused (ROADMAP.md, section C).
+    def _refuse_cabac(self, what: str) -> None:
+        if self.cfg.cabac:
+            raise ValueError(f"{what} writes the device's CAVLC slices; "
+                             "it does not take --cabac")
+        if self.host_entropy:
+            raise ValueError(f"{what} runs on the device-entropy route; "
+                             "host_entropy is on")
+
+    def encode_frame_pipelined(self, y, u, v,
+                               qp: int | None = None) -> bytes | None:
+        """Submit a frame; returns the previous frame's access unit (None
+        on the first call): one frame of output delay, so that the next
+        frame's device work is queued before the last one is packed and
+        pulled.  Call flush_pipeline() at the end of the stream.  An IDR
+        at every keyint frames, as encode_frame without force_idr."""
+        self._refuse_cabac("encode_frame_pipelined")
+        pend = self._pipe_pending
+        self._pipe_pending = self._submit(y, u, v, qp)
+        return None if pend is None else self._emit(pend)
+
+    def flush_pipeline(self) -> bytes | None:
+        """The access unit still held by encode_frame_pipelined, or None."""
+        self._refuse_cabac("flush_pipeline")
+        pend, self._pipe_pending = self._pipe_pending, None
+        return None if pend is None else self._emit(pend)
+
+    def encode_gop_batch(self, frames: list,
+                         qp: int | None = None) -> list[bytes]:
+        """Consecutive frames [(y, u, v), ...] -> one AU per frame: the
+        stream's first frame and each frame at a keyint boundary are IDRs
+        encoded per frame (encode_frame), the P frames between them one
+        batch each (_encode_p_batch: one QP, self.qp after qp, for the
+        whole batch)."""
+        self._refuse_cabac("encode_gop_batch")
+        keyint = self.cfg.keyint
+        out: list[bytes] = []
+        i = 0
+        if self.ref is None or self.frame_idx % keyint == 0:
+            out.append(self.encode_frame(*frames[0], qp=qp))
+            i = 1
+        while i < len(frames):
+            g = min(len(frames) - i, keyint - self.frame_idx % keyint)
+            out += self._encode_p_batch(frames[i:i + g], qp)
+            i += g
+            if i < len(frames):
+                out.append(self.encode_frame(*frames[i], qp=qp))
+                i += 1
+        return out
+
+    def _set_qp(self, qp: int | None) -> None:
+        if qp is not None:
+            self.qp = int(min(max(qp, 0), 51))
+            self.qpc = int(tables.chroma_qp(self.qp,
+                                            self.pps.chroma_qp_index_offset))
+
+    def _encode_p_batch(self, batch: list, qp: int | None) -> list[bytes]:
+        """G P frames as one batch (device_finalize.encode_pgop_slots),
+        each predicted from the recon of the one before; packed
+        (pack_batch) and pulled in one copy."""
+        cfg = self.cfg
+        self._set_qp(qp)
+        G = len(batch)
+        rows = torch.from_numpy(self.pack_batch_rows(batch)).to(self.device)
+        self._wp = None
+        self._cur_nref = 1
+        hvs = np.zeros((G, device_finalize.MAX_HDR), np.int64)
+        hls = np.zeros((G, device_finalize.MAX_HDR), np.int32)
+        for k in range(G):
+            hvs[k], hls[k] = self._slice_header_codes(
+                SLICE_P, NAL_SLICE).to_slots(pad_to=device_finalize.MAX_HDR)
+            self.frame_idx += 1
+            self.frame_num = (self.frame_num + 1) % (
+                1 << (self.sps.log2_max_frame_num_minus4 + 4))
+        vs, ls, ry, ru, rv, mvs = device_finalize.encode_pgop_slots(
+            rows, *self.ref, [self.qp] * G, [self.qpc] * G,
+            torch.from_numpy(hvs).to(self.device),
+            torch.from_numpy(hls).to(self.device),
+            cfg.search_range, cfg.subpel, cfg.me_backend, cfg.deblock,
+            cfg.deblock_alpha, cfg.deblock_beta,
+            self.pps.chroma_qp_index_offset, self.partitions,
+            cfg.aq_strength, cfg.dct8x8, trellis=cfg.trellis)
+        self.ref = (ry, ru, rv)
+        self.last_mv = mvs[-1]
+        datas, nbits = device_finalize.pack_batch(vs, ls)
+        nbytes = [(nb + 7) // 8 for nb in nbits]
+        blob = torch.cat([d[:n] for d, n in zip(datas, nbytes)]).cpu().numpy()
+        ends = np.cumsum(nbytes)
+        return [wrap_nal(3, NAL_SLICE, blob[e - n:e])
+                for e, n in zip(ends, nbytes)]
+
+    def _submit(self, y, u, v, qp: int | None) -> tuple:
+        """encode_frame_pipelined's device work for one I or P frame: the
+        slot rows, not packed (nothing is read back)."""
+        cfg = self.cfg
+        H, W = self.mbh * 16, self.mbw * 16
+        is_idr = self.frame_idx % cfg.keyint == 0 or self.ref is None
+        self._set_qp(qp)
+        src_d = torch.from_numpy(self.pack_batch_rows([(y, u, v)])[0]) \
+            .to(self.device)
+        if is_idr:
+            self.frame_num = 0
+            nal_type = NAL_SLICE_IDR
+            hv, hl = self._header_slots(SLICE_I, nal_type)
+            if self._i_full is None:
+                self._i_full = device_finalize.encode_i_slots_fn(
+                    H, W, cfg.deblock, cfg.deblock_alpha, cfg.deblock_beta,
+                    qpc_offset=self.pps.chroma_qp_index_offset,
+                    i4x4=cfg.i4x4, dct8x8=cfg.dct8x8)
+            sv_, sl_, *rec = self._i_full(src_d, self.qp, self.qpc, hv, hl)
+        else:
+            nal_type = NAL_SLICE
+            self._wp = None
+            self._cur_nref = 1
+            hv, hl = self._header_slots(SLICE_P, nal_type)
+            sv_, sl_, *rec, out = device_finalize.encode_p_slots(
+                src_d, *self.ref, self.qp, self.qpc, hv, hl,
+                cfg.search_range, cfg.subpel, cfg.me_backend,
+                cfg.deblock, cfg.deblock_alpha, cfg.deblock_beta,
+                qpc_offset=self.pps.chroma_qp_index_offset,
+                partitions=self.partitions, aq_strength=cfg.aq_strength,
+                dct8x8=cfg.dct8x8, trellis=cfg.trellis)
+            self.last_mv = device_finalize.colocated_mv(
+                out, self.mbh * self.mbw)
+            self.last_mv8 = out.get("mv8")
+        self.ref = tuple(rec)
+        self.frame_idx += 1
+        self.frame_num = (self.frame_num + 1) % (
+            1 << (self.sps.log2_max_frame_num_minus4 + 4))
+        if is_idr:
+            self.idr_id = (self.idr_id + 1) % 65536
+        return sv_, sl_, nal_type, is_idr
+
+    def _emit(self, state: tuple) -> bytes:
+        """A submitted frame's AU: pack, one pull, the NAL wrap (after the
+        stream headers at an IDR)."""
+        sv_, sl_, nal_type, is_idr = state
+        data, nbits = device_finalize.pack_phase(sv_, sl_)
+        payload = data[:(nbits + 7) // 8].cpu().numpy()
+        return ((self.headers() if is_idr else b"")
+                + wrap_nal(3, nal_type, payload))
 
     def _wrap_frame(self, payload, nal_type: int, is_idr: bool) -> bytes:
         """The I or P slice's AU (headers first at an IDR); advances the

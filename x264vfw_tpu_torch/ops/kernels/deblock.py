@@ -126,48 +126,43 @@ def _clip3(lo, hi, x):
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
-def luma_filter(p3, p2, p1, p0, q0, q1, q2, q3, m):
-    """Elementwise §8.7.2.3/.4 on int32 lines.  Returns (p2', p1', p0',
-    q0', q1', q2')."""
-    bs, tc0, alpha, beta = _unpack(m)
-    act = ((bs > 0) & ((p0 - q0).abs() < alpha)
-           & ((p1 - p0).abs() < beta) & ((q1 - q0).abs() < beta))
-    ap = (p2 - p0).abs() < beta
-    aq = (q2 - q0).abs() < beta
-
-    tc = tc0 + ap.int() + aq.int()
+def luma_filter(p3, p2, p1, p0, q0, q1, q2, q3, prm):
+    """Elementwise §8.7.2.3/.4 on int32 lines; prm: the edges' unpacked
+    map fields (bS, tc0, alpha, beta).  Returns (p2', p1', p0', q0', q1',
+    q2').  The p and q sides are one stacked tensor (side 0 p, side 1 q,
+    each counted from the edge outwards), so that each formula the
+    standard writes twice, mirrored, runs once."""
+    bs, tc0, alpha, beta = prm
+    s = torch.stack([torch.stack([p3, p2, p1, p0]),
+                     torch.stack([q3, q2, q1, q0])])
+    x3, x2, x1, x0 = s.unbind(1)                  # (2, ...) each
+    o = s.flip(0)                                 # the other side's
+    y1, y0 = o[:, 2], o[:, 3]
+    edge = (p0 - q0).abs()
+    near = (x2 - x0).abs() < beta                 # ap, aq
+    act = ((bs > 0) & (edge < alpha)
+           & ((x1 - x0).abs() < beta).all(0))
+    tc = tc0 + near.sum(0, dtype=torch.int32)
     delta = _clip3(-tc, tc, ((q0 - p0) * 4 + (p1 - q1) + 4) >> 3)
-    w_p0 = (p0 + delta).clamp(0, 255)
-    w_q0 = (q0 - delta).clamp(0, 255)
-    dp1 = _clip3(-tc0, tc0, (p2 + ((p0 + q0 + 1) >> 1) - 2 * p1) >> 1)
-    dq1 = _clip3(-tc0, tc0, (q2 + ((p0 + q0 + 1) >> 1) - 2 * q1) >> 1)
-    w_p1 = torch.where(ap, p1 + dp1, p1)
-    w_q1 = torch.where(aq, q1 + dq1, q1)
-
-    strong = (p0 - q0).abs() < ((alpha >> 2) + 2)
-    sp = ap & strong
-    s_p0 = torch.where(sp, (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3,
-                       (2 * p1 + p0 + q1 + 2) >> 2)
-    s_p1 = torch.where(sp, (p2 + p1 + p0 + q0 + 2) >> 2, p1)
-    s_p2 = torch.where(sp, (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3, p2)
-    sq = aq & strong
-    s_q0 = torch.where(sq, (p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3,
-                       (2 * q1 + q0 + p1 + 2) >> 2)
-    s_q1 = torch.where(sq, (p0 + q0 + q1 + q2 + 2) >> 2, q1)
-    s_q2 = torch.where(sq, (2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3, q2)
-
+    w0 = (x0 + torch.stack([delta, -delta])).clamp(0, 255)
+    d1 = _clip3(-tc0, tc0, (x2 + ((p0 + q0 + 1) >> 1) - 2 * x1) >> 1)
+    w1 = torch.where(near, x1 + d1, x1)
+    strong = near & (edge < ((alpha >> 2) + 2))
+    s0 = torch.where(strong, (x2 + 2 * (x1 + x0 + y0) + y1 + 4) >> 3,
+                     (2 * x1 + x0 + y1 + 2) >> 2)
+    s1 = torch.where(strong, (x2 + x1 + x0 + y0 + 2) >> 2, x1)
+    s2 = torch.where(strong, (2 * x3 + 3 * x2 + x1 + x0 + y0 + 4) >> 3, x2)
     is4 = bs == 4
-    return (torch.where(act & is4, s_p2, p2),
-            torch.where(act, torch.where(is4, s_p1, w_p1), p1),
-            torch.where(act, torch.where(is4, s_p0, w_p0), p0),
-            torch.where(act, torch.where(is4, s_q0, w_q0), q0),
-            torch.where(act, torch.where(is4, s_q1, w_q1), q1),
-            torch.where(act & is4, s_q2, q2))
+    o2 = torch.where(act & is4, s2, x2)
+    o1 = torch.where(act, torch.where(is4, s1, w1), x1)
+    o0 = torch.where(act, torch.where(is4, s0, w0), x0)
+    return o2[0], o1[0], o0[0], o0[1], o1[1], o2[1]
 
 
-def chroma_filter(p1, p0, q0, q1, m):
-    """Elementwise chroma edge filter (tc = tc0 + 1).  Returns (p0', q0')."""
-    bs, tc0, alpha, beta = _unpack(m)
+def chroma_filter(p1, p0, q0, q1, prm):
+    """Elementwise chroma edge filter (tc = tc0 + 1) on unpacked map
+    fields.  Returns (p0', q0')."""
+    bs, tc0, alpha, beta = prm
     act = ((bs > 0) & ((p0 - q0).abs() < alpha)
            & ((p1 - p0).abs() < beta) & ((q1 - q0).abs() < beta))
     tc = tc0 + 1
@@ -183,30 +178,33 @@ def _filter_tiles(ty, tc, mV, mH, mVc, mHc):
     """Filter a batch of MB tiles in place.  ty (n, 20, 20): the MB at
     [4:, 4:] with 4 rows above and 4 columns left of it; tc (2n, 10, 10):
     U and V tiles with a 2-pixel halo; maps per MB."""
+    mV, mH = _unpack(mV), _unpack(mH)
+    mVc2 = _unpack(torch.cat([mVc, mVc]))     # the U tiles', then the V's
+    mHc2 = _unpack(torch.cat([mHc, mHc]))
     for e in range(4):                        # luma vertical, left to right
         x = 4 + 4 * e
         cols = [ty[:, 4:, x + k] for k in range(-4, 4)]
-        out = luma_filter(*cols, mV[:, :, e])
+        out = luma_filter(*cols, [f[:, :, e] for f in mV])
         for k, o in zip(range(-3, 3), out):
             ty[:, 4:, x + k] = o
-    mVc2 = torch.cat([mVc, mVc])
     for e in range(2):                        # chroma vertical
         x = 2 + 4 * e
         p0, q0 = chroma_filter(tc[:, 2:, x - 2], tc[:, 2:, x - 1],
-                               tc[:, 2:, x], tc[:, 2:, x + 1], mVc2[:, :, e])
+                               tc[:, 2:, x], tc[:, 2:, x + 1],
+                               [f[:, :, e] for f in mVc2])
         tc[:, 2:, x - 1] = p0
         tc[:, 2:, x] = q0
     for f in range(4):                        # luma horizontal, top down
         r = 4 + 4 * f
         rows = [ty[:, r + k, 4:] for k in range(-4, 4)]
-        out = luma_filter(*rows, mH[:, f, :])
+        out = luma_filter(*rows, [m[:, f, :] for m in mH])
         for k, o in zip(range(-3, 3), out):
             ty[:, r + k, 4:] = o
-    mHc2 = torch.cat([mHc, mHc])
     for f in range(2):                        # chroma horizontal
         r = 2 + 4 * f
         p0, q0 = chroma_filter(tc[:, r - 2, 2:], tc[:, r - 1, 2:],
-                               tc[:, r, 2:], tc[:, r + 1, 2:], mHc2[:, f, :])
+                               tc[:, r, 2:], tc[:, r + 1, 2:],
+                               [m[:, f, :] for m in mHc2])
         tc[:, r - 1, 2:] = p0
         tc[:, r, 2:] = q0
 
