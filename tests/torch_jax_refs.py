@@ -17,6 +17,10 @@ the port against these arrays exactly instead of compiling the JAX
 programs anew in every run; test_torch_session.py::
 test_jax_references_are_current fails when the sources have changed
 since the files were written.
+
+Importing this module also builds the JAX package's two C libraries where
+they are missing or stale, whole and in place (torch_ref_libs.py), before
+a test calls the JAX package's C coders.
 """
 
 from __future__ import annotations
@@ -27,10 +31,14 @@ import os
 import numpy as np
 import torch
 
+import torch_ref_libs
+
 # The port's tests run small tensors, on which PyTorch's intra-op thread
 # pool costs more than it saves (most of all beside other test workers
 # on the same cores): one thread per test process.
 torch.set_num_threads(1)
+
+torch_ref_libs.build_reference_libraries()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_DIR = os.path.join(ROOT, "tests", "jax_refs")
